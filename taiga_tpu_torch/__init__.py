@@ -10,7 +10,8 @@ Layer map (the JAX package's layout and names):
   crypto/    Pasta fields & curves, Poseidon (host, copied)
   core/      resource data model and compliance info (host, copied)
   circuits/  compliance circuit and its gadgets (host, copied)
-  native/    the C++ host engine (keygen commitments, IPA open/verify)
+  native/    the C++ host engine (keygen commitments, the native IPA open,
+             verification)
   ops/       limb arithmetic, NTT, fixed-base MSM, lookup sort, tape
              interpreter — each CUDA kernel beside its plain version
   plonk/     constraint system, keygen, prover, verifier
@@ -41,12 +42,13 @@ def compliance_proving_key(k: int = 13):
 
 
 def prove_compliance(rng, k: int = 13, device="cuda", randbits=secrets.randbits,
-                     timer=None):
+                     timer=None, ipa: str = "native"):
     """Prove one random compliance (Action) statement,
     ComplianceInfo.random(rng) for a random.Random `rng`, at domain 2^k on
     `device`. Every blind comes from `randbits`; `timer`
-    (plonk.prover.StageTimer) records stage wall times. Returns
-    (vk, instance, proof bytes)."""
+    (plonk.prover.StageTimer) records stage wall times; `ipa` is "native"
+    (the C++ engine's IPA open) or "device" (the IPA open on `device`).
+    Returns (vk, instance, proof bytes)."""
     from .core.compliance import ComplianceInfo
     from .plonk.prover import create_proof
 
@@ -54,5 +56,5 @@ def prove_compliance(rng, k: int = 13, device="cuda", randbits=secrets.randbits,
     instance = pis.to_instance()
     pk = compliance_proving_key(k)
     proof = create_proof(pk, circuit, instance, device=device, randbits=randbits,
-                         timer=timer)
+                         timer=timer, ipa=ipa)
     return pk.vk, instance, proof

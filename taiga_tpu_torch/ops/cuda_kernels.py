@@ -21,7 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("mont_mul", "ec_add_proj", "tape_eval")
+SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FIELD_IDS = {"fp": 0, "fq": 1}
 
@@ -84,6 +84,11 @@ _ARGTYPES = {
     },
     "tape_eval": {
         "taiga_tape_eval": [_VP, _I32, _VP, _VP, _I64, _VP, _I64, ctypes.c_int, _VP],
+    },
+    "ec_fold_shared": {"taiga_ec_fold_shared": [_VP] * 11 + [_I64, ctypes.c_int, _VP]},
+    "ec_add_jac": {
+        "taiga_ec_add_jac": [_VP] * 9 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_add_jac_sel": [_VP] * 10 + [_I64, ctypes.c_int, _VP],
     },
 }
 

@@ -8,7 +8,8 @@ limbs): torch has only partial uint32 support on the CPU.
 
 Inside, every op works LIMB-MAJOR on int32 tensors (16, ...): row i is limb i
 for the whole batch, so each step of a carry chain is one vector op over a
-contiguous row. Sums and differences of canonical limbs stay within 17 bits.
+contiguous row, and a chain of 0/1 carries (a sum or difference of
+canonical limbs, within 17 bits) is resolved at once by carry-lookahead.
 The Montgomery product accumulates its 16x16-bit products (< 2^32) in
 float64, exact below 2^53, so it never needs the reference's lo/hi split.
 
@@ -114,16 +115,25 @@ class FieldSpec:
         self.one_mont = int_to_limbs(self.r)  # 1 in Montgomery form
         self.one_plain = int_to_limbs(1)
         self.zero = np.zeros(NLIMBS, dtype=np.int32)
-        self._n_cols: dict = {}
+        self._cols: dict = {}
 
     def n_col(self, device, ndim: int, dtype=DTYPE) -> torch.Tensor:
         """The modulus limbs as a (16, 1, ..., 1) column of `dtype` on
         `device` (cached: a constant, never mutated)."""
         key = (str(device), ndim, dtype)
-        t = self._n_cols.get(key)
+        t = self._cols.get(key)
         if t is None:
             t = torch.tensor(self.n_list, dtype=dtype, device=device)
-            t = self._n_cols[key] = t.view((NLIMBS,) + (1,) * ndim)
+            t = self._cols[key] = t.view((NLIMBS,) + (1,) * ndim)
+        return t
+
+    def one_col(self, device) -> torch.Tensor:
+        """1 in Montgomery form as a (16, 1) int32 column on `device`: the Y
+        of the projective identity (0 : 1 : 0). Cached, never mutated."""
+        key = ("one", str(device))
+        t = self._cols.get(key)
+        if t is None:
+            t = self._cols[key] = const(self.one_mont, device)[:, None].contiguous()
         return t
 
     # --- host-side conversion helpers (exactness oracle boundary) -----
@@ -164,40 +174,60 @@ def _carry(t: torch.Tensor):
     return out, carry
 
 
-def _sub_n_borrow(a: torch.Tensor, spec: FieldSpec):
-    """(a - p, borrow) for canonical int32 (16, ...) a."""
-    out = torch.empty_like(a)
-    borrow = torch.zeros_like(a[0])
-    for i in range(NLIMBS):
-        d = a[i] - spec.n_list[i] - borrow
-        out[i] = d & MASK
-        borrow = (d >> 31) & 1
-    return out, borrow
+_LIMB_SHIFTS: dict = {}
+
+
+def _lookahead(gen: torch.Tensor, prop: torch.Tensor):
+    """Carries (or borrows) of a 16-limb chain from per-limb generate and
+    propagate flags (bool (16, ...), never both set): returns the carry into
+    each limb (int32 (16, ...)) and the carry out (int32 (...)). With the
+    flags packed as bit masks G and P, the carries into the limbs are the
+    carries of the integer sum (G | P) + G, read off as ((G | P) + G) ^ (G | P) ^ G.
+    A handful of whole-tensor ops in place of a 16-step ripple of row ops."""
+    key = (str(gen.device), gen.dim())
+    sh = _LIMB_SHIFTS.get(key)
+    if sh is None:
+        sh = _LIMB_SHIFTS[key] = torch.arange(
+            NLIMBS, dtype=DTYPE, device=gen.device).view((NLIMBS,) + (1,) * (gen.dim() - 1))
+    g = (gen.to(DTYPE) << sh).sum(0, dtype=DTYPE)  # 16-bit masks: int32 holds the sums
+    a = g | (prop.to(DTYPE) << sh).sum(0, dtype=DTYPE)
+    c = (a + g) ^ a ^ g
+    return (c.unsqueeze(0) >> sh) & 1, (c >> NLIMBS) & 1
+
+
+def _carry01(s: torch.Tensor):
+    """Canonical limbs and carry out of an int32 (16, ...) limb sum whose
+    limbs are at most 2*MASK (every carry is 0 or 1)."""
+    into, out = _lookahead(s > MASK, s == MASK)
+    return (s + into) & MASK, out
+
+
+def _borrow(d: torch.Tensor, sub: torch.Tensor):
+    """(d - sub) as canonical limbs and the borrow out (0/1), for canonical
+    int32 limb tensors (16, ...) d and `sub` (broadcastable to d)."""
+    v = d - sub
+    into, out = _lookahead(v < 0, v == 0)
+    return (v - into) & MASK, out
 
 
 def _reduce(a16: torch.Tensor, hi: torch.Tensor, spec: FieldSpec):
     """Conditional subtract: a16 + hi*2^256 reduced mod p, assuming < 2p."""
-    d, borrow = _sub_n_borrow(a16, spec)
+    d, borrow = _borrow(a16, spec.n_col(a16.device, a16.dim() - 1))
     ge = (borrow == 0) | (hi > 0)
     return torch.where(ge, d, a16)
 
 
 def lm_add(a, b, spec: FieldSpec):
     """(a + b) mod p on limb-major int32 tensors."""
-    s, carry = _carry(a + b)
+    s, carry = _carry01(a + b)
     return _reduce(s, carry, spec)
 
 
 def lm_sub(a, b, spec: FieldSpec):
     """(a - b) mod p on limb-major int32 tensors."""
     a, b = torch.broadcast_tensors(a, b)
-    diff = torch.empty_like(a)
-    borrow = torch.zeros_like(a[0])
-    for i in range(NLIMBS):
-        d = a[i] - b[i] - borrow
-        diff[i] = d & MASK
-        borrow = (d >> 31) & 1
-    fixed, _ = _carry(diff + borrow * spec.n_col(a.device, a.dim() - 1))
+    diff, borrow = _borrow(a, b)
+    fixed, _ = _carry01(diff + borrow * spec.n_col(a.device, a.dim() - 1))
     return fixed
 
 

@@ -1,8 +1,16 @@
-"""Fixed-base multi-scalar multiplication over the SRS on fused point kernels.
+"""Multi-scalar multiplication on fused point kernels.
 
-Port of the fixed-base path of taiga_tpu/ops/msm.py — the one the prover
-commits every column with. MSM(s, G) = sum_i [s_i] G_i over one fixed point
-set, so the window structure is baked into data: a shifted table
+Port of taiga_tpu/ops/msm.py. MSM(s, G) = sum_i [s_i] G_i.
+
+The general Pippenger (`msm`, `msm_multi`: any point set; the device IPA's
+commitments and L/R points, the device verifier's <s, G>) runs the
+reference's device path at every size: per c-bit window, sort the digits
+(stably), gather the points, reduce each digit's run (K3 rounds), weight the
+buckets by their digit (K2), then combine the windows by Horner (K2). The
+windows are independent, so they are reduced together, each on its own lanes.
+
+The fixed-base path is the one the prover commits every column with: one
+fixed point set, so the window structure is baked into data: a shifted table
 T[w][i] = [2^(c*w)] G_i, built once per domain, turns every commitment into a
 SINGLE bucket accumulation over W*N lanes:
 
@@ -22,6 +30,7 @@ affine normalization; the port asserts that every input is finite instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import ff_kernels as FK
@@ -45,14 +54,11 @@ def _digits_all(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def _one_mont_col(field: str, device) -> torch.Tensor:
-    return L.const(L.FIELDS[field].one_mont, device)[:, None]  # (16, 1)
-
-
 def _mask_identity(x, y, z, keep, field: str):
-    """Lanes where keep is False become the projective identity (0:1:0)."""
-    one = _one_mont_col(field, x.device)
-    k = keep[None, :]
+    """Lanes where keep is False become the projective identity (0:1:0).
+    Points (16, ..., L), keep (..., L)."""
+    one = L.FIELDS[field].one_col(x.device).view((16,) + (1,) * (x.dim() - 1))
+    k = keep[None]
     x = torch.where(k, x, 0)
     y = torch.where(k, y, one)
     z = torch.where(k, z, 0)
@@ -60,28 +66,57 @@ def _mask_identity(x, y, z, keep, field: str):
 
 
 def _nonzero_sized(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
-    """Indices of True entries, ascending, padded with `fill` to `size` (the
-    reference's static-size nonzero). The callers' bounds are guarantees of
-    sortedness; exceeding one raises instead of truncating."""
-    pos = torch.nonzero(mask).flatten()
-    if pos.numel() > size:
-        raise AssertionError(f"nonzero: {pos.numel()} entries exceed the static bound {size}")
-    out = torch.full((size,), fill, dtype=pos.dtype, device=mask.device)
-    out[: pos.numel()] = pos
-    return out
+    """Indices of True entries along the last axis, ascending, padded with
+    `fill` to `size` (the reference's static-size nonzero), for each row of
+    a (..., L) mask. The callers' bounds are guarantees of sortedness;
+    exceeding one raises instead of truncating."""
+    n = mask.shape[-1]
+    count = int(mask.sum(-1).max())
+    if count > size:
+        raise AssertionError(f"nonzero: {count} entries exceed the static bound {size}")
+    key = torch.where(mask, torch.arange(n, device=mask.device), n)
+    pos = torch.sort(key, dim=-1).values[..., :size]
+    if size > n:
+        pos = torch.cat([pos, pos.new_full(tuple(mask.shape[:-1]) + (size - n,), n)], dim=-1)
+    return torch.where(pos == n, fill, pos)
+
+
+def _take(v: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """v (16, ..., L) or keys (..., L) gathered along the last axis at the
+    positions pos (..., K)."""
+    if v.dim() > pos.dim():
+        pos = pos.unsqueeze(0).expand((v.shape[0],) + tuple(pos.shape))
+    return torch.gather(v, -1, pos)
+
+
+def _lanes(v: torch.Tensor) -> torch.Tensor:
+    """(16, ..., L) coordinates as one contiguous (16, B) kernel operand."""
+    return v.reshape(16, -1).contiguous()
+
+
+def _add(p, q, field: str):
+    """K2 over two point triples of one shape (16, ..., L)."""
+    shape = p[0].shape
+    out = FK.ec_add_proj_lm(*(_lanes(v) for v in p + q), field=field)
+    return tuple(o.view(shape) for o in out)
 
 
 def _seg_rounds(x, y, z, d, n: int, rounds: int, field: str):
-    """Segmented Hillis-Steele suffix reduction: after round r, lane i holds
-    the sum of its run's elements in [i, i + 2^(r+1)). One K3 launch a round."""
+    """Segmented Hillis-Steele suffix reduction along the last axis of
+    points (16, ..., n) with keys (..., n): after round r, lane i holds the
+    sum of its run's elements in [i, i + 2^(r+1)). One K3 launch a round,
+    over every row at once."""
     idx = torch.arange(n, device=x.device)
+    shape = x.shape
     for r in range(rounds):
         s = 1 << r
-        nx = torch.roll(x, -s, dims=1)
-        ny = torch.roll(y, -s, dims=1)
-        nz = torch.roll(z, -s, dims=1)
-        same = ((idx + s < n) & (d == torch.roll(d, -s))).to(L.DTYPE)
-        x, y, z = FK.ec_add_proj_sel_lm(x, y, z, nx, ny, nz, same[None, :], field)
+        nx = torch.roll(x, -s, dims=-1)
+        ny = torch.roll(y, -s, dims=-1)
+        nz = torch.roll(z, -s, dims=-1)
+        same = ((idx + s < n) & (d == torch.roll(d, -s, dims=-1))).to(L.DTYPE)
+        out = FK.ec_add_proj_sel_lm(*(_lanes(v) for v in (x, y, z, nx, ny, nz)),
+                                    same.reshape(1, -1), field)
+        x, y, z = (o.view(shape) for o in out)
     return x, y, z
 
 
@@ -169,78 +204,217 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
     return ex, ey, ez, ekeys, en
 
 
+def _compact(x, y, z, d, total: int, size: int, sentinel: int, field: str):
+    """Reduce the sorted runs of points (16, ..., total) with keys
+    (..., total) to partials at stride CHUNK from each run's start (CHUNK
+    rounds), gather those to `size` lanes (sentinel keys and identities
+    beyond them) and finish the runs there. Returns (x, y, z, keys)."""
+    dev = x.device
+    x, y, z = _seg_rounds(x, y, z, d, total, _CHUNK.bit_length() - 1, field)
+    idx = torch.arange(total, device=dev)
+    first = torch.ones(tuple(d.shape[:-1]) + (1,), dtype=torch.bool, device=dev)
+    is_start = torch.cat([first, d[..., 1:] != d[..., :-1]], dim=-1)
+    start_idx = torch.where(is_start, idx, -1)
+    seg_start = torch.cummax(start_idx, dim=-1).values
+    mask = ((idx - seg_start) % _CHUNK) == 0
+    pos = _nonzero_sized(mask, size, total)
+    valid = pos < total
+    posc = torch.clamp(pos, 0, total - 1)
+    cd = torch.where(valid, _take(d, posc), sentinel)
+    x, y, z = _mask_identity(_take(x, posc), _take(y, posc), _take(z, posc), valid, field)
+    x, y, z = _seg_rounds(x, y, z, cd, size, size.bit_length() - 1, field)
+    return x, y, z, cd
+
+
+def _bucket_sums(x, y, z, cd, c: int, ncols: int, size: int, field: str):
+    """From reduced runs (each run's first lane holds its bucket's sum; keys
+    col*2^c + digit, sorted, over `size` lanes) to each column's window sum
+    sum_j j*B_j: buckets extracted by searchsorted, weighted through the bits
+    of j (a K2 tree over (c, ncols, 2^c) lanes, then Horner over the bits).
+    Returns 3 x (16, ..., ncols) projective points."""
+    dev = x.device
+    batch = tuple(cd.shape[:-1])
+    nbuckets = 1 << c
+    targets = torch.arange(ncols * nbuckets, dtype=cd.dtype, device=dev)
+    pos = torch.searchsorted(cd, targets.expand(batch + targets.shape).contiguous())
+    pos = torch.clamp(pos, 0, size - 1)
+    present = _take(cd, pos) == targets
+    bx, by, bz = _mask_identity(_take(x, pos), _take(y, pos), _take(z, pos), present, field)
+    # (16, ..., ncols, nbuckets) -> weighted sums via bit decomposition, batched
+    digit_vals = targets.reshape(ncols, nbuckets) & (nbuckets - 1)
+    bits = torch.arange(c, device=dev)
+    bit_masks = ((digit_vals[None, :, :] >> bits[:, None, None]) & 1) > 0
+    # lanes: (16, ..., c, ncols, nbuckets)
+    lanes = c * ncols * nbuckets
+    shape4 = (16,) + batch + (c, ncols, nbuckets)
+    tx, ty, tz = (v.reshape((16,) + batch + (1, ncols, nbuckets)).expand(shape4)
+                  .reshape((16,) + batch + (lanes,)) for v in (bx, by, bz))
+    keep = bit_masks.reshape(lanes).expand(batch + (lanes,))
+    t = _mask_identity(tx, ty, tz, keep, field)
+
+    sh3 = (16,) + batch + (c * ncols, nbuckets)
+    for r in range((nbuckets - 1).bit_length()):
+        s = 1 << r
+        nxt = tuple(torch.roll(v.reshape(sh3), -s, dims=-1).reshape(v.shape) for v in t)
+        t = _add(t, nxt, field)
+
+    # lane 0 of each (bit, col) row: S_{t,col}; Horner over bits, ncols lanes
+    sel = ((torch.arange(c, device=dev)[:, None] * ncols
+            + torch.arange(ncols, device=dev)[None, :]) * nbuckets).reshape(-1)
+    s_t = tuple(v.index_select(-1, sel).reshape((16,) + batch + (c, ncols)) for v in t)
+    acc = tuple(v[..., c - 1, :] for v in s_t)
+    for i in range(c - 1):
+        b = c - 2 - i
+        acc = _add(acc, acc, field)
+        acc = _add(acc, tuple(v[..., b, :] for v in s_t), field)
+    return acc
+
+
 def _window_reduce_multi(pts_lm, dcomp, field: str, c: int, ncols: int, n: int,
                          compact: int):
     """Bucket-accumulate one window for NCOLS scalar columns sharing one
     point set. pts_lm is (16, ncols*n) limb-major projective points in
     composite-key sorted order; dcomp is the sorted composite key
     col*2^c + digit (so runs never cross column boundaries). Returns the
-    window partial sums as (3, 16, ncols) projective points."""
+    window partial sums as (3, 16, ncols) projective points.
+
+    Leading axes between the limbs and the lanes (points (16, W, ncols*n),
+    keys (W, ncols*n)) are independent windows, reduced together: every
+    launch covers all of them, with the reference's per-window adds on the
+    same lanes."""
     x, y, z = pts_lm
-    dev = x.device
     nbuckets = 1 << c
     total = ncols * n
     x, y, z = _mask_identity(x, y, z, (dcomp & (nbuckets - 1)) != 0, field)
 
     if total % _BLOCK == 0 and total // _BLOCK >= 4 * ncols * nbuckets:
+        if dcomp.dim() > 1:  # the blocked reduction takes one window at a time
+            outs = [_window_reduce_multi((x[:, w], y[:, w], z[:, w]), dcomp[w], field, c,
+                                         ncols, n, compact) for w in range(dcomp.shape[0])]
+            return tuple(torch.stack([o[i] for o in outs], dim=1) for i in range(3))
         x, y, z, cd, compact = _blocked_partials(
             x, y, z, dcomp, field, ncols, nbuckets, total)
     else:
-        chunk_rounds = _CHUNK.bit_length() - 1
-        x, y, z = _seg_rounds(x, y, z, dcomp, total, chunk_rounds, field)
-        idx = torch.arange(total, device=dev)
-        is_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                              dcomp[1:] != dcomp[:-1]])
-        start_idx = torch.where(is_start, idx, -1)
-        seg_start = torch.cummax(start_idx, dim=0).values
-        mask = ((idx - seg_start) % _CHUNK) == 0
-        pos = _nonzero_sized(mask, compact, total)
-        valid = pos < total
-        posc = torch.clamp(pos, 0, total - 1)
-        cd = torch.where(valid, dcomp.index_select(0, posc), ncols * nbuckets)
-        x = x.index_select(1, posc)
-        y = y.index_select(1, posc)
-        z = z.index_select(1, posc)
-        x, y, z = _mask_identity(x, y, z, valid, field)
-        x, y, z = _seg_rounds(x, y, z, cd, compact, compact.bit_length() - 1, field)
+        x, y, z, cd = _compact(x, y, z, dcomp, total, compact, ncols * nbuckets, field)
+    return _bucket_sums(x, y, z, cd, c, ncols, compact, field)
 
-    targets = torch.arange(ncols * nbuckets, dtype=cd.dtype, device=dev)
-    pos = torch.clamp(torch.searchsorted(cd, targets), 0, compact - 1)
-    present = cd.index_select(0, pos) == targets
-    bx = x.index_select(1, pos)
-    by = y.index_select(1, pos)
-    bz = z.index_select(1, pos)
-    bx, by, bz = _mask_identity(bx, by, bz, present, field)
-    # (16, ncols, nbuckets) -> weighted sums via bit decomposition, batched
-    digit_vals = targets.reshape(ncols, nbuckets) & (nbuckets - 1)
-    bits = torch.arange(c, device=dev)
-    bit_masks = ((digit_vals[None, :, :] >> bits[:, None, None]) & 1) > 0
-    # lanes: (16, c, ncols, nbuckets)
-    lanes = c * ncols * nbuckets
-    shape4 = (16, c, ncols, nbuckets)
-    tx = bx.reshape(16, 1, ncols, nbuckets).expand(shape4).reshape(16, lanes)
-    ty = by.reshape(16, 1, ncols, nbuckets).expand(shape4).reshape(16, lanes)
-    tz = bz.reshape(16, 1, ncols, nbuckets).expand(shape4).reshape(16, lanes)
-    tx, ty, tz = _mask_identity(tx, ty, tz, bit_masks.reshape(lanes), field)
 
-    sh3 = (16, c * ncols, nbuckets)
-    for r in range((nbuckets - 1).bit_length()):
-        s = 1 << r
-        nx = torch.roll(tx.reshape(sh3), -s, dims=2).reshape(16, lanes)
-        ny = torch.roll(ty.reshape(sh3), -s, dims=2).reshape(16, lanes)
-        nz = torch.roll(tz.reshape(sh3), -s, dims=2).reshape(16, lanes)
-        tx, ty, tz = FK.ec_add_proj_lm(tx, ty, tz, nx, ny, nz, field=field)
+# ---------------------------------------------------------------------------
+# the general Pippenger (any point set): msm, msm_multi
+# ---------------------------------------------------------------------------
 
-    # lane 0 of each (bit, col) row: S_{t,col}; Horner over bits, ncols lanes
-    sel = ((torch.arange(c, device=dev)[:, None] * ncols
-            + torch.arange(ncols, device=dev)[None, :]) * nbuckets).reshape(-1)
-    s_t = tuple(v.index_select(1, sel).reshape(16, c, ncols) for v in (tx, ty, tz))
-    acc = tuple(v[:, c - 1, :].contiguous() for v in s_t)
-    for i in range(c - 1):
-        t = c - 2 - i
-        acc = FK.ec_add_proj_lm(*acc, *acc, field=field)
-        acc = FK.ec_add_proj_lm(*acc, *(v[:, t, :].contiguous() for v in s_t), field=field)
-    return acc  # 3 x (16, ncols)
+_COMPACT = 1024  # compacted lane count of a single-column window (>= n/CHUNK + 2^c)
+
+
+def scalars_to_limbs(scalars: list[int]) -> np.ndarray:
+    """Plain (non-Montgomery) 16-bit limb array (N, 16) int32 from int scalars."""
+    return L.ints_to_limbs(list(scalars))
+
+
+def _window_reduce(pts_lm, d, field: str, c: int, n: int):
+    """Bucket-accumulate the windows of one scalar column (reference
+    _window_reduce): points (16, W, n) in digit-sorted order, digits (W, n).
+    Up to 2*COMPACT lanes every run is reduced in place (log2 n rounds);
+    above, runs are compacted first. Returns 3 x (16, W, 1)."""
+    x, y, z = _mask_identity(*pts_lm, d != 0, field)
+    if n <= 2 * _COMPACT:
+        logn = max(1, n.bit_length() - 1)
+        x, y, z = _seg_rounds(x, y, z, d, n, logn, field)
+        size = n
+    else:
+        x, y, z, d = _compact(x, y, z, d, n, _COMPACT, 1 << c, field)
+        size = _COMPACT
+    return _bucket_sums(x, y, z, d, c, 1, size, field)
+
+
+def _to_projective(px, py, pz, field: str, in_form: str):
+    """The MSM's input as limb-major projective (16, N) coordinates:
+    Jacobian (X, Y, Z) rows (N, 16) become (X*Z : Y : Z^3), Z = 0 the
+    identity (0 : 1 : 0); projective input passes through."""
+    if in_form == "projective":
+        return px, py, pz
+    if in_form != "jacobian":
+        raise ValueError(f"in_form must be 'jacobian' or 'projective', not {in_form!r}")
+    spec = L.FIELDS[field]
+    z2 = L.mont_mul(pz, pz, spec)
+    x = L.mont_mul(px, pz, spec).T
+    z = L.mont_mul(z2, pz, spec).T
+    return _mask_identity(x, py.T, z, ~L.is_zero(pz), field)
+
+
+def _gather_sorted(pts, pidx):
+    """Limb-major points (16, N) gathered at (W, M) indices -> (16, W, M)."""
+    return tuple(v.index_select(1, pidx.reshape(-1)).view((16,) + tuple(pidx.shape))
+                 for v in pts)
+
+
+def _horner_windows(ws, c: int, field: str):
+    """Combine window sums 3 x (16, W, L) most significant first:
+    acc = [2^c] acc + w, as c K2 doublings and one K2 add per window."""
+    acc = tuple(v[:, -1] for v in ws)
+    for w in range(ws[0].shape[1] - 2, -1, -1):
+        for _ in range(c):
+            acc = _add(acc, acc, field)
+        acc = _add(acc, tuple(v[:, w] for v in ws), field)
+    return acc
+
+
+def _to_jacobian(X, Y, Z, field: str):
+    """Projective (L, 16) rows (X : Y : Z) -> Jacobian (X*Z, Y*Z^2, Z)."""
+    spec = L.FIELDS[field]
+    xz = L.mont_mul(X, Z, spec)
+    yz2 = L.mont_mul(Y, L.mont_mul(Z, Z, spec), spec)
+    return xz, yz2, Z.contiguous()
+
+
+def msm(px, py, pz, scalar_limbs, field: str = "fq", c: int = WINDOW_BITS,
+        in_form: str = "jacobian"):
+    """MSM over a batch of points and plain-form scalar limbs (N, 16):
+    sum_i [s_i] P_i as one Jacobian point (3, 16). Points are (N, 16) x3
+    Jacobian Montgomery rows, or limb-major (16, N) projective coordinates
+    (identity (0 : 1 : 0)) with in_form="projective". The reference's
+    device path at every size: its host branch for N <= 512 is not taken.
+
+    The windows, independent passes of the reference's scan, are reduced
+    together (one launch per round for all of them); their sums combine by
+    Horner from the most significant window."""
+    pp = _to_projective(px, py, pz, field, in_form)
+    digits = _digits_all(scalar_limbs, c)  # (W, N)
+    d, order = torch.sort(digits, dim=-1, stable=True)
+    ws = _window_reduce(_gather_sorted(pp, order), d, field, c, digits.shape[1])
+    X, Y, Z = (v[:, 0][None, :] for v in _horner_windows(ws, c, field))  # (1, 16)
+    xz, yz2, Z = _to_jacobian(X, Y, Z, field)
+    return torch.stack([xz[0], yz2[0], Z[0]])
+
+
+def msm_multi(px, py, pz, scalars, field: str = "fq", c: int = WINDOW_BITS,
+              in_form: str = "jacobian"):
+    """Batched Pippenger MSM: NCOLS scalar vectors (NCOLS, N, 16) plain
+    limbs over ONE shared point set (as for msm). Returns (NCOLS, 3, 16)
+    Jacobian points. The reference's device path at every size."""
+    ncols, n = scalars.shape[0], scalars.shape[1]
+    nbuckets = 1 << c
+    total = ncols * n
+    # compacted width: per-column stride-CHUNK partials + bucket runs
+    compact = 1 << max(1, (total // _CHUNK + ncols * nbuckets - 1).bit_length())
+    pp = _to_projective(px, py, pz, field, in_form)
+    digits = torch.stack([_digits_all(s, c) for s in scalars], dim=1)  # (W, ncols, n)
+    col_off = torch.arange(ncols, dtype=digits.dtype, device=digits.device)[:, None] * nbuckets
+    comp = (digits + col_off).reshape(digits.shape[0], total)  # composite keys
+    d, order = torch.sort(comp, dim=-1, stable=True)
+    pts = _gather_sorted(pp, order % n)  # shared point set: same points for every column
+    ws = _window_reduce_multi(pts, d, field, c, ncols, n, compact)  # 3 x (16, W, ncols)
+    X, Y, Z = _horner_windows(ws, c, field)  # (16, ncols)
+    xz, yz2, Zt = _to_jacobian(X.T, Y.T, Z.T, field)
+    return torch.stack([xz, yz2, Zt], dim=1)
+
+
+def msm_host(points, scalars):
+    """Reference host MSM (slow; the tests' oracle)."""
+    acc = type(points[0]).identity()
+    for p, s in zip(points, scalars):
+        acc = acc + p * s
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +478,7 @@ def _unpack_rows_lm(rows_t, field: str):
         lo = p & 0xFFFF
         hi = (p >> 16) & 0xFFFF
         outs.append(torch.stack([lo, hi], dim=1).reshape(16, -1))
-    outs.append(_one_mont_col(field, rows_t.device).expand(outs[0].shape).contiguous())
+    outs.append(L.FIELDS[field].one_col(rows_t.device).expand(outs[0].shape).contiguous())
     return outs
 
 
@@ -330,11 +504,7 @@ def _msm_fixed_dev(tbl, scalars, field: str, c: int):
     pts = _unpack_rows_lm(tbl.index_select(0, pidx).T.contiguous(), field)
     X, Y, Z = _window_reduce_multi(pts, d, field, c, ncols, W * n, compact)
     # (3, 16, ncols) projective -> (ncols, 3, 16) Jacobian
-    spec = L.FIELDS[field]
-    Xt, Yt, Zt = X.T, Y.T, Z.T
-    xz = L.mont_mul(Xt, Zt, spec)
-    yz2 = L.mont_mul(Yt, L.mont_mul(Zt, Zt, spec), spec)
-    return torch.stack([xz, yz2, Zt.contiguous()], dim=1)
+    return torch.stack(_to_jacobian(X.T, Y.T, Z.T, field), dim=1)
 
 
 def msm_fixed_multi(table, scalars, field: str = "fq", c: int = WINDOW_BITS,

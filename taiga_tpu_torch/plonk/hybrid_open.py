@@ -1,14 +1,17 @@
-"""Hybrid multiopen: device-side aggregation, host-side IPA tail.
+"""Hybrid multiopen: device-side aggregation, then the IPA open.
 
 Port of the single-proof path of taiga_tpu/plonk/hybrid_open.py. The
 multiopen (shplonk-style per-point aggregation) is LINEAR in the committed
 polynomials, so the whole reduction — per-point weighted sums, synthetic
 division, the h/f assemblies — runs on the device where the coefficient
 stacks already live; the h commitment goes through the prover's fixed-base
-MSM. Only the per-group evaluations at x3 and the final aggregate f cross
-to the host, where the native C++ engine runs the IPA open
-(plonk/native_open.py). That tail is the reference's main path; without the
-engine this raises.
+MSM. The caller picks the IPA open of the aggregate f, where the reference
+picks by the native engine's presence:
+  ipa="native"  f crosses to the host and the C++ engine opens it
+                (plonk/native_open.py); without the engine this raises;
+  ipa="device"  f stays on the device and plonk/ipa.py::ipa_open_device
+                opens it (K5 folds, general MSMs); the engine is not touched.
+The two write the same transcript bytes under the same randbits.
 
 Transcript framing is identical to the reference: proofs verify under the
 unchanged verifier.
@@ -67,14 +70,20 @@ def _build_programs(group_sizes: tuple[int, ...]):
     return agg_fn, h_fn, f_fn
 
 
-def multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits):
-    """Aggregate + open. all_coeffs: (C, n, 16) device Montgomery coefficient
-    stack; entries: [{coeff_idx, blind, point, value}] in query order."""
-    from ..native import hostops as H
-    from .native_open import ipa_open_native
+IPA_OPENS = ("native", "device")
 
-    if not H.available():
-        raise RuntimeError("the IPA open needs the native host engine (g++ build failed)")
+
+def multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits, ipa: str = "native"):
+    """Aggregate + open. all_coeffs: (C, n, 16) device Montgomery coefficient
+    stack; entries: [{coeff_idx, blind, point, value}] in query order; ipa:
+    "native" or "device", the IPA open of the aggregate."""
+    if ipa not in IPA_OPENS:
+        raise ValueError(f"ipa must be one of {IPA_OPENS}, not {ipa!r}")
+    if ipa == "native":
+        from ..native import hostops as H
+
+        if not H.available():
+            raise RuntimeError("the native IPA open needs the native host engine (g++ build failed)")
     dev = all_coeffs.device
     params = get_params(pipe.k)
     v_ch = tr.challenge(b"mo-v").v
@@ -122,5 +131,11 @@ def multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits):
         f_blind = (f_blind + wp * blind) % P
         wp = wp * w_ch % P
 
-    f_host = L.packed_to_u64(L.pack_limbs(f))
-    ipa_open_native(params, f_host, f_blind, x3, tr, randbits)
+    if ipa == "device":
+        from .ipa import ipa_open_device
+
+        ipa_open_device(params, f, f_blind, x3, tr, randbits)
+    else:
+        from .native_open import ipa_open_native
+
+        ipa_open_native(params, L.packed_to_u64(L.pack_limbs(f)), f_blind, x3, tr, randbits)

@@ -15,7 +15,8 @@ interpreter (ops/tape_device.py). The stages, in transcript order:
   y -> quotient: the compiled constraint tape over the 8n coset, divide by
       Z_H, coset iNTT, split, commit
   x -> evaluations at the query points
-  multiopen: device aggregation, native C++ IPA tail (plonk/hybrid_open.py)
+  multiopen: device aggregation, then the IPA open: the native C++ tail or
+      the device open (plonk/hybrid_open.py, `ipa=`)
 
 Every blind is drawn through the caller's `randbits(300) % p`, in the
 reference's order, so `random.Random(seed).getrandbits` reproduces the
@@ -356,10 +357,17 @@ def get_pipeline(pk: ProvingKey, device) -> ProverPipeline:
 
 
 def create_proof(pk: ProvingKey, circuit, instance: list[Fp], *, device="cuda",
-                 randbits=secrets.randbits, timer: StageTimer | None = None) -> bytes:
+                 randbits=secrets.randbits, timer: StageTimer | None = None,
+                 ipa: str = "native") -> bytes:
     """Prove `circuit` against `pk` on `device` ("cuda" unless the caller
     asks for "cpu"). Every blind comes from `randbits`; `timer` (a
-    StageTimer) records per-stage wall times."""
+    StageTimer) records per-stage wall times; `ipa` picks the IPA open of
+    the multiopen: "native" (the C++ engine on the host) or "device"
+    (plonk/ipa.py::ipa_open_device). Both give the same proof bytes."""
+    from .hybrid_open import IPA_OPENS, multiopen_open_hybrid
+
+    if ipa not in IPA_OPENS:
+        raise ValueError(f"ipa must be one of {IPA_OPENS}, not {ipa!r}")
     vk = pk.vk
     k, n, u = vk.k, vk.n, vk.usable_rows
     omega = vk.omega
@@ -535,9 +543,7 @@ def create_proof(pk: ProvingKey, circuit, instance: list[Fp], *, device="cuda",
         tr.write_scalar(Fp(v))
     st_t.mark("query evals")
 
-    # --- multiopen (device aggregation + native IPA tail) -------------
-    from .hybrid_open import multiopen_open_hybrid
-
+    # --- multiopen (device aggregation + the IPA open) -----------------
     entries = []
     for kind, idx, rot in queries:
         entries.append(
@@ -548,6 +554,6 @@ def create_proof(pk: ProvingKey, circuit, instance: list[Fp], *, device="cuda",
                 "value": evals[(kind, idx, rot)],
             }
         )
-    multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits)
-    st_t.mark("multiopen + IPA")
+    multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits, ipa=ipa)
+    st_t.mark("multiopen + IPA (device)" if ipa == "device" else "multiopen + IPA")
     return tr.bytes()

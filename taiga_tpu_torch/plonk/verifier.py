@@ -39,11 +39,13 @@ P = Fp.MODULUS
 
 
 def verify_proof(vk: VerifyingKey, instance: list[Fp], proof: bytes,
-                 claim=None) -> bool:
+                 claim=None, msm_device=None) -> bool:
     """Verify one proof. With `claim` (an MSMClaim), the final MSM check is
-    deferred into the claim — see BatchVerifier."""
+    deferred into the claim — see BatchVerifier. With `msm_device` (a torch
+    device), the final check is evaluated with <s, G> as one MSM on that
+    device (plonk/ipa.py); otherwise on the native engine."""
     try:
-        return _verify(vk, instance, proof, claim)
+        return _verify(vk, instance, proof, claim, msm_device)
     except (ValueError, AssertionError, KeyError):
         return False
 
@@ -90,7 +92,7 @@ class BatchVerifier:
 
 
 def _verify(vk: VerifyingKey, instance: list[Fp], proof: bytes,
-            claim=None) -> bool:
+            claim=None, msm_device=None) -> bool:
     k, n, u = vk.k, vk.n, vk.usable_rows
     cs = vk.cs
     omega = vk.omega
@@ -214,5 +216,5 @@ def _verify(vk: VerifyingKey, instance: list[Fp], proof: bytes,
         v_f = (v_f + wp * av) % P
         wp = wp * w_ch % P
 
-    ok = ipa_verify(params, f_terms, x3, v_f, tr, claim)
+    ok = ipa_verify(params, f_terms, x3, v_f, tr, claim, msm_device=msm_device)
     return ok and tr.finished()

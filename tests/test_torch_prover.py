@@ -4,7 +4,10 @@ tests/test_lookup.py's ByteRangeCircuit (copied below onto the port's
 Circuit) at k = 9: the port's keygen equals the JAX package's, and a proof
 made with the key carried across (proving_key_from_arrays) and seeded blinds
 is byte-identical to taiga_tpu.plonk.host_prover.create_proof_host under the
-same seed, and verifies under both verifiers. Every comparison is exact."""
+same seed, and verifies under both verifiers. The same proof with the
+device IPA open (ipa="device", `slow`: ten minutes of plain-version MSMs and
+folds on the CPU) is byte-identical too, and verifies through the device
+MSM. Every comparison is exact."""
 
 import random
 import secrets
@@ -17,6 +20,7 @@ from taiga_tpu.plonk.host_prover import create_proof_host
 from taiga_tpu.plonk.keygen import keygen as jkeygen
 from taiga_tpu.plonk.verifier import verify_proof as jverify
 from taiga_tpu_torch.crypto.fields import Fp
+from taiga_tpu_torch.native import hostops as TH
 from taiga_tpu_torch.plonk import keygen as TK, prover as TP, verifier as TV
 from taiga_tpu_torch.plonk.circuit import Circuit, CircuitBuilder, ConstraintSystem
 from tests.test_lookup import BAD, INST, VALUES, ByteRangeCircuit as JByteRangeCircuit
@@ -114,24 +118,69 @@ def test_key_arrays_are_checked_against_the_key(keys):
                                    np.asarray(jpk.sigma_mont())[1:])
 
 
-def test_seeded_proof_equals_host_prover(keys):
-    jpk, tpk = keys
+@pytest.fixture(scope="module")
+def host_proof(keys):
+    jpk, _ = keys
     orig = secrets.randbits
     secrets.randbits = _seeded(SEED)
     try:
-        want = create_proof_host(jpk, JByteRangeCircuit(VALUES), INST)
+        return create_proof_host(jpk, JByteRangeCircuit(VALUES), INST)
     finally:
         secrets.randbits = orig
-    inst = [Fp(v.v) for v in INST]
-    got = TP.create_proof(tpk, ByteRangeCircuit(VALUES), inst, device="cpu",
-                          randbits=_seeded(SEED))
+
+
+def _assert_same_proof(jpk, got, want):
     if got != want:
         first = next(label for (label, w), (_, g) in
                      zip(proof_items(jpk, want), proof_items(jpk, got)) if w != g)
         pytest.fail(f"the proofs first differ at {first} ({len(got)} vs {len(want)} bytes)")
+
+
+def test_seeded_proof_equals_host_prover(keys, host_proof):
+    jpk, tpk = keys
+    inst = [Fp(v.v) for v in INST]
+    got = TP.create_proof(tpk, ByteRangeCircuit(VALUES), inst, device="cpu",
+                          randbits=_seeded(SEED))
+    _assert_same_proof(jpk, got, host_proof)
     assert TV.verify_proof(tpk.vk, inst, got)
     assert jverify(jpk.vk, INST, got)
     assert not TV.verify_proof(tpk.vk, [inst[0], inst[1] + Fp(1)], got)
+
+
+@pytest.mark.slow
+def test_device_ipa_proof_equals_host_prover(keys, host_proof, monkeypatch):
+    """ipa="device": the IPA open runs on the proof's device (K5 folds,
+    general MSMs), never on the native engine, and gives the same bytes as
+    the host prover and as the port's native IPA open; it verifies under
+    both verifiers and through the device MSM. The device MSM's final
+    check refuses the proof with a0 changed (the IPA's last but one scalar:
+    only that check reads it); a changed instance is refused before it, by
+    the vanishing identity."""
+    jpk, tpk = keys
+    inst = [Fp(v.v) for v in INST]
+
+    def no_engine():
+        raise AssertionError("the device IPA asked for the native engine")
+
+    with monkeypatch.context() as m:
+        m.setattr(TH, "available", no_engine)
+        got = TP.create_proof(tpk, ByteRangeCircuit(VALUES), inst, device="cpu",
+                              randbits=_seeded(SEED), ipa="device")
+    _assert_same_proof(jpk, got, host_proof)
+    assert TV.verify_proof(tpk.vk, inst, got)
+    assert jverify(jpk.vk, INST, got)
+    assert TV.verify_proof(tpk.vk, inst, got, msm_device="cpu")
+    tampered = bytearray(got)
+    tampered[-64] ^= 1  # a0, still canonical
+    assert not TV.verify_proof(tpk.vk, inst, bytes(tampered), msm_device="cpu")
+    assert not TV.verify_proof(tpk.vk, [inst[0], inst[1] + Fp(1)], got, msm_device="cpu")
+
+
+def test_unknown_ipa_open_is_refused(keys):
+    _, tpk = keys
+    with pytest.raises(ValueError, match="ipa"):
+        TP.create_proof(tpk, ByteRangeCircuit(VALUES), [Fp(v.v) for v in INST], device="cpu",
+                        ipa="host")
 
 
 def test_out_of_table_witness_is_refused(keys):
