@@ -15,9 +15,14 @@ exit code and no result line:
      8n = 65,536-lane coset for the tape interpreter). The IPA fold K5 is
      checked at 4,096, 100 and 1 lanes with the scalars 0, 1, q - 1 and a
      random one, identities and a lane whose sum is the identity, and timed
-     at 4,096; the Jacobian adds K6/K7 at 8,192 lanes with P + P, P + (-P)
-     and identities, and timed at 1,048,576 lanes beside K2 (these three
-     with CUDA events: a launch lasts milliseconds);
+     at each of the three widths; the Jacobian adds K6/K7 at 8,192 lanes
+     with P + P, P + (-P) and identities, and timed at 1,048,576 lanes
+     beside K2; the chained Horner of K2 (ec_horner) on both fields at
+     every shape a proof gives it (32 windows of 8 doublings over 1 and 2
+     columns; 8 bits of 1 doubling over 8, 32 and 64 columns, the last two
+     over several blocks), with identity terms and a column whose
+     last add meets its own negation, and timed at each shape (these with
+     CUDA events: a launch is a long dependent chain);
   5. prove one compliance (Action) proof at k = 13 on the card with seeded
      blinds, cold and then warm, with the native (host) IPA open: counts of
      kernel launches are zeroed just before each proof and read just after;
@@ -25,11 +30,13 @@ exit code and no result line:
      through the plain versions on the card under the same seed. Then the
      same statement, warm, with the device IPA open (ipa="device"): it must
      equal the native-IPA proof byte for byte, launch K5 once per IPA round
-     and verify on the native engine and through the device MSM
-     (msm_device="cuda"); the device MSM's final check must refuse it with
-     its a0 changed, and the verifier must refuse it for a changed
-     instance. A profiled device-IPA proof, which launches K1-K5, gives
-     each kernel's device time per proof and the device's busy time;
+     and K2 fewer than 400 times (each MSM's Horner chains are ec_horner
+     launches, which both proofs must make), and verify on the native
+     engine and through the device MSM (msm_device="cuda"); the device
+     MSM's final check must refuse it with its a0 changed, and the verifier
+     must refuse it for a changed instance. A profiled device-IPA proof,
+     which launches K1-K5 and ec_horner, gives each kernel's device time
+     per proof and the device's busy time;
   6. print per-stage wall times of both warm proofs beside the card's name
      and power limit, one JSON line of per-kernel numbers, and last
      {"ok": true, "device": {...}}.
@@ -58,6 +65,13 @@ W_EC_ADD = 8 * 32 * N // 2    # msm._blocked_partials: first tree level, 8 colum
 W_EC_ADD_SEL = 8 * 256 * 128  # msm._blocked_partials: 8 x 256 mixed blocks of 128 lanes
 W_FOLD = N // 2               # the IPA's first generator fold
 FOLD_WIDTHS = (W_FOLD, 100, 1)  # the widest fold, and widths below and off a block
+# ec_horner's shapes (W terms, doublings, L columns) in a proof: the window
+# Horner of msm (1 column) and msm_multi (2); the bit Horner of a fixed-base
+# chunk (8 columns) and of msm's and msm_multi's buckets, whose 32 windows
+# are lanes (32 and 64 columns: 2 and 4 blocks). The kernels line reports
+# the second
+HORNER_SHAPES = ((32, 8, 1), (32, 8, 2), (8, 1, 8), (8, 1, 32), (8, 1, 64))
+MAX_K2_DEVICE_IPA = 400  # K2 launches a warm device-IPA proof may make
 IMAD_PER_S = 67e12 / 4  # 32-bit integer multiply-adds/s, see bound_ms()
 HBM_BYTES_PER_S = 3.35e12
 MM_IMADS = 2 * 2 * 64 + 8  # one 8x32-bit CIOS product: lo+hi of 128 word products, 8 m's
@@ -67,6 +81,7 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "ec_add_proj_sel": ("k_ec_add_proj<true>", "k_ec_add_projILb1E"),
     "tape_eval": ("k_tape_eval",),
     "ec_fold_shared": ("k_ec_fold_shared",),
+    "ec_horner": ("k_ec_horner",),
     "ec_add": ("k_ec_add_jac<false>", "k_ec_add_jacILb0E"),
     "ec_add_select": ("k_ec_add_jac<true>", "k_ec_add_jacILb1E"),
 }
@@ -313,6 +328,8 @@ def phase_device():
 
 
 def phase_build():
+    import re
+
     from taiga_tpu_torch.ops import cuda_kernels as CK
 
     t0 = time.perf_counter()
@@ -320,8 +337,11 @@ def phase_build():
     log(f"build: {len(outs)} sources with nvcc in {time.perf_counter() - t0:.2f} s")
     for name, out in outs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}.cu: {line.strip()}")
+            fn = re.search(r"(k_[a-z0-9_]+?)(ILb([01])E)?E", line)
+            if "Compiling entry function" in line and fn:
+                log(f"  {name}.cu: {fn.group(1)}{'' if fn.group(3) is None else f'<{fn.group(3)}>'}")
+            elif "registers" in line or "spill" in line:
+                log(f"  {name}.cu:   {line.strip()}")
 
 
 def compare(name, got, want):
@@ -460,6 +480,7 @@ def phase_kernels(pk, seed: int, dev):
         f"{tape.num_regs} registers: equal; {ms4:.6f} ms per launch (plain {pms4:.1f} ms)")
     del ks, got, want
     res.update(phase_fold_and_jacobian(rng, gen, dev))
+    res.update(phase_horner(rng, dev))
     return res
 
 
@@ -517,13 +538,18 @@ def phase_fold_and_jacobian(rng, gen, dev):
     B5 = W_FOLD
     with FK.plain_versions():
         pms5 = cuda_ms(lambda: FK.ec_fold_shared_lm(*lo, *hi, sl, "fq"), 1)
-    ms5 = cuda_ms(lambda: FK.ec_fold_shared_lm(*lo, *hi, sl, "fq"), 20)  # see LONG_LAUNCH
     steps = (FK.FOLD_STEPS - 1) + bin(s_val).count("1") + 1  # doublings, adds, G_lo + acc
-    res["ec_fold_shared"] = dict(err=err5, ms=ms5, plain_ms=pms5, B=B5,
-                                 bound=bound_ms(9 * fe * B5 + fe, steps * 12 * MM_IMADS * B5))
     log(f"K5 ec_fold_shared  equal on fp and fq at B={FOLD_WIDTHS} for s = 0, 1, q-1 and a "
-        f"random s; at B={B5}: {ms5:.6f} ms per launch (plain {pms5:.1f} ms)")
-    del lo, hi, fold_in
+        f"random s (plain at B={B5}: {pms5:.1f} ms); the chain: {2 * FK.FOLD_STEPS} product "
+        f"stages a lane (a doubling beside each add, and the final add)")
+    for B in FOLD_WIDTHS:  # see LONG_LAUNCH
+        args = [v[:, :B].contiguous() for v in lo + hi]
+        ms = cuda_ms(lambda: FK.ec_fold_shared_lm(*args, sl, "fq"), 20)
+        bound = bound_ms(9 * fe * B + fe, steps * 12 * MM_IMADS * B)
+        log(f"  at B={B}: {ms:.6f} ms per launch (bound {bound[0]:.6f} ms by {bound[1]})")
+        if B == B5:
+            res["ec_fold_shared"] = dict(err=err5, ms=ms, plain_ms=pms5, B=B5, bound=bound)
+    del lo, hi, fold_in, args
 
     # K6 / K7: edge cases on both fields, then the width K2 is timed at (Fq)
     errs6, errs7 = [], []
@@ -571,6 +597,69 @@ def phase_fold_and_jacobian(rng, gen, dev):
     return res
 
 
+def horner_terms(rng, field: str, dev, W: int, d: int, Lc: int):
+    """Terms (16, W, Lc) x 3 of ec_horner: curve points scaled by random z,
+    the identity as column 0's most significant term (the chain starts at
+    the identity) and as its term 1, and in the last column a term 0 equal
+    to the negation of the sum it is added to (the last add meets its own
+    negation: the result is the identity)."""
+    import torch
+    from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L
+
+    spec = L.FIELDS[field]
+    p1, _ = point_inputs(rng, field, dev)
+    perm = torch.as_tensor(7 + rng.permutation(N - 7)[:W * Lc], device=dev)  # no edge lane
+    t = [v.index_select(1, perm).reshape(16, W, Lc).contiguous() for v in p1]
+    one = torch.as_tensor(L.int_to_limbs(spec.r), device=dev)
+    for w in (W - 1, 1):
+        t[0][:, w, 0], t[1][:, w, 0], t[2][:, w, 0] = 0, one, 0
+    with FK.plain_versions():  # the sum before the last add, then its negation
+        acc = FK.ec_horner_lm(*(v[:, 1:, -1:].contiguous() for v in t), d, field)
+        for _ in range(d):
+            acc = FK.ec_add_proj_lm(*acc, *acc, field)
+    t[0][:, 0, -1], t[2][:, 0, -1] = acc[0][:, 0], acc[2][:, 0]
+    t[1][:, 0, -1] = L.neg(acc[1].T.contiguous(), spec)[0]
+    return t
+
+
+def phase_horner(rng, dev):
+    """ec_horner (K2 chained, one launch per Horner) against its plain
+    version, the loop of K2 adds it replaces, bit for bit on both fields at
+    the MSMs' shapes; then timed at each (see LONG_LAUNCH)."""
+    from taiga_tpu_torch.ops import ff_kernels as FK
+
+    fe = 16 * 4
+    err, timed = 0, {}
+    for field in ("fp", "fq"):
+        for W, d, Lc in HORNER_SHAPES:
+            t = horner_terms(rng, field, dev, W, d, Lc)
+            got = FK.ec_horner_lm(*t, d, field)
+            with FK.plain_versions():
+                want = FK.ec_horner_lm(*t, d, field)
+            err = max(err, compare(f"ec_horner[{field}, W={W}, d={d}, L={Lc}]", got, want))
+            x, y, z = (v[:, -1] for v in got)
+            if x.any() or z.any() or not y.any():
+                raise AssertionError(f"ec_horner[{field}, W={W}]: the cancelling column "
+                                     "is not the identity")
+            if field == "fq":
+                timed[(W, d, Lc)] = t
+    log(f"ec_horner          equal on fp and fq at (W, doublings, L) = {HORNER_SHAPES}, with "
+        f"identity terms and a last add that meets its own negation")
+    res = {}
+    for (W, d, Lc), t in timed.items():
+        ms = cuda_ms(lambda: FK.ec_horner_lm(*t, d, "fq"), 20)
+        adds = (W - 1) * (d + 1)
+        bound = bound_ms(3 * fe * (W + 1) * Lc, adds * 12 * MM_IMADS * Lc)
+        log(f"  at (W, d, L) = ({W}, {d}, {Lc}), a chain of {adds} adds ({2 * adds} product "
+            f"stages) a column: {ms:.6f} ms per launch (bound {bound[0]:.6f} ms by {bound[1]})")
+        if (W, d, Lc) == HORNER_SHAPES[1]:
+            with FK.plain_versions():
+                pms = cuda_ms(lambda: FK.ec_horner_lm(*t, d, "fq"), 1)
+            log(f"    plain version (the loop of {adds} K2 adds) {pms:.3f} ms")
+            res["ec_horner"] = dict(err=err, ms=ms, plain_ms=pms, B=(W, d, Lc), bound=bound)
+    return res
+
+
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device")
@@ -580,6 +669,10 @@ KERNELS = [
      "taiga_tpu/ops/ff_kernels.py:547", ("native", "device")),
     ("ec_add_proj_sel", "ec_add_proj_sel_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
      "taiga_tpu/ops/ff_kernels.py:511", ("native", "device")),
+    # K2 chained: the scan over K2 that combines an MSM's windows (and its
+    # bit Horner, :158-173)
+    ("ec_horner", "ec_horner_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
+     "taiga_tpu/ops/msm.py:417-424", ("native", "device")),
     ("tape_eval", "tape_eval_lm", "taiga_tpu_torch/csrc/tape_eval.cu",
      "taiga_tpu/ops/tape_device.py:81", ("native", "device")),
     ("ec_fold_shared", "ec_fold_shared_lm", "taiga_tpu_torch/csrc/ec_fold_shared.cu",
@@ -676,6 +769,9 @@ def phase_prove(pk, seed: int):
     log(f"proof with the device IPA open, warm: {t_dev:.2f} s; launches {launches_d}")
     if launches_d["ec_fold_shared"] != K:
         raise AssertionError(f"the device IPA folded {launches_d['ec_fold_shared']} times, not {K}")
+    if launches_d["ec_add_proj"] >= MAX_K2_DEVICE_IPA:
+        raise AssertionError(f"the device-IPA proof launched K2 {launches_d['ec_add_proj']} "
+                             f"times, not fewer than {MAX_K2_DEVICE_IPA}")
     if dproof != proof:
         raise AssertionError("the device-IPA proof differs from the native-IPA proof")
     log("the device-IPA proof equals the native-IPA proof byte for byte")

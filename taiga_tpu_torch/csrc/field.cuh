@@ -1,5 +1,7 @@
 // 255-bit prime-field and Pasta-curve arithmetic shared by every kernel of
-// taiga_tpu_torch (K1 mont_mul, K2/K3 ec_add_proj[_sel], K4 tape_eval).
+// taiga_tpu_torch (K1 mont_mul, K2/K3 ec_add_proj[_sel], K4 tape_eval, K5
+// ec_fold_shared, K6/K7 ec_add[_select]; csrc/ec_group.cuh builds the
+// thread-group point add on it).
 //
 // Replaces the in-kernel helpers of taiga_tpu/ops/ff_kernels.py
 // (_mm_cios, _madd, _msub, _mul15, _ec_add_proj_core). Memory layout is the
@@ -7,11 +9,12 @@
 // 16-bit limbs (stored in 32-bit words), so a warp's 32 lanes read 32
 // neighbouring words of one row: every load and store coalesces.
 //
-// In registers an element is 8 little-endian 32-bit words. The Montgomery
-// product is CIOS over 32-bit digits with 64-bit partial products. Its
-// result, (a*b + m*p) / 2^256 with the unique m = -a*b/p mod 2^256, followed
-// by one conditional subtract, is the value the reference's 16-bit CIOS
-// computes, bit for bit, for every 256-bit input.
+// In registers an element is 8 little-endian 32-bit words. Additions,
+// subtractions and the Montgomery product run on the hardware's carry
+// chains (inline PTX). The product is CIOS over 32-bit digits; its result,
+// (a*b + m*p) / 2^256 with the unique m = -a*b/p mod 2^256, followed by one
+// conditional subtract, is the value the reference's 16-bit CIOS computes,
+// bit for bit, for every 256-bit input.
 //
 // The field constants live in constant memory, keyed by the field id that
 // the Python side maps from the field's name ("fp" -> 0, "fq" -> 1); the
@@ -27,16 +30,16 @@ namespace taiga {
 constexpr int kWords = 8;    // 32-bit words per element
 constexpr int kLimbs = 16;   // 16-bit limbs per element
 
-struct FieldConsts {
-  uint32_t p[kWords];  // modulus, little-endian words
-  uint32_t n0;         // -p^-1 mod 2^32
-};
-
-__constant__ FieldConsts kFields[2];
-
 struct Fe {
   uint32_t w[kWords];
 };
+
+struct FieldConsts {
+  Fe p;         // modulus, little-endian words
+  uint32_t n0;  // -p^-1 mod 2^32
+};
+
+__constant__ FieldConsts kFields[2];
 
 // --- limb-major loads / stores ----------------------------------------------
 
@@ -60,104 +63,156 @@ __device__ __forceinline__ void store_fe(uint32_t* base, int64_t stride, int64_t
 }
 
 // --- field ops ------------------------------------------------------------------
+//
+// Every carry chain is ONE inline-PTX statement (add.cc / addc.cc, sub.cc /
+// subc.cc, mad.lo.cc / madc.hi.cc): the carry flag never has to live across
+// statements, and each step of a chain is one hardware multiply-add or add
+// with carry in and out, instead of a 64-bit multiply and a 64-bit add.
+
+// s = a + b over 8 words; returns the carry out of 2^256 (0 or 1).
+__device__ __forceinline__ uint32_t add8(Fe& s, const Fe& a, const Fe& b) {
+  uint32_t c;
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, %25, %25;"
+      : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3]), "=r"(s.w[4]), "=r"(s.w[5]),
+        "=r"(s.w[6]), "=r"(s.w[7]),
+        "=r"(c)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]),
+        "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]),
+        "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]), "r"(0u));
+  return c;
+}
+
+// s = a - b over 8 words; returns the borrow out as a mask (0 or 0xFFFFFFFF).
+__device__ __forceinline__ uint32_t sub8(Fe& s, const Fe& a, const Fe& b) {
+  uint32_t br;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %25, %25;"
+      : "=r"(s.w[0]), "=r"(s.w[1]), "=r"(s.w[2]), "=r"(s.w[3]), "=r"(s.w[4]), "=r"(s.w[5]),
+        "=r"(s.w[6]), "=r"(s.w[7]),
+        "=r"(br)
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]),
+        "r"(a.w[6]), "r"(a.w[7]), "r"(b.w[0]), "r"(b.w[1]), "r"(b.w[2]), "r"(b.w[3]),
+        "r"(b.w[4]), "r"(b.w[5]), "r"(b.w[6]), "r"(b.w[7]), "r"(0u));
+  return br;
+}
+
+// t[0..9] += a * bi: the low halves of the 8 word products in one carry
+// chain, the high halves (one word up) in a second; t[9] takes the carries.
+__device__ __forceinline__ void mac_row(uint32_t (&t)[kWords + 2], const Fe& a, uint32_t bi) {
+  asm(
+      "mad.lo.cc.u32 %0, %10, %18, %0;\n\t"
+      "madc.lo.cc.u32 %1, %11, %18, %1;\n\t"
+      "madc.lo.cc.u32 %2, %12, %18, %2;\n\t"
+      "madc.lo.cc.u32 %3, %13, %18, %3;\n\t"
+      "madc.lo.cc.u32 %4, %14, %18, %4;\n\t"
+      "madc.lo.cc.u32 %5, %15, %18, %5;\n\t"
+      "madc.lo.cc.u32 %6, %16, %18, %6;\n\t"
+      "madc.lo.cc.u32 %7, %17, %18, %7;\n\t"
+      "addc.cc.u32 %8, %8, 0;\n\t"
+      "addc.u32 %9, %9, 0;\n\t"
+      "mad.hi.cc.u32 %1, %10, %18, %1;\n\t"
+      "madc.hi.cc.u32 %2, %11, %18, %2;\n\t"
+      "madc.hi.cc.u32 %3, %12, %18, %3;\n\t"
+      "madc.hi.cc.u32 %4, %13, %18, %4;\n\t"
+      "madc.hi.cc.u32 %5, %14, %18, %5;\n\t"
+      "madc.hi.cc.u32 %6, %15, %18, %6;\n\t"
+      "madc.hi.cc.u32 %7, %16, %18, %7;\n\t"
+      "madc.hi.cc.u32 %8, %17, %18, %8;\n\t"
+      "addc.u32 %9, %9, 0;"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]), "+r"(t[5]), "+r"(t[6]),
+        "+r"(t[7]), "+r"(t[8]), "+r"(t[9])
+      : "r"(a.w[0]), "r"(a.w[1]), "r"(a.w[2]), "r"(a.w[3]), "r"(a.w[4]), "r"(a.w[5]),
+        "r"(a.w[6]), "r"(a.w[7]), "r"(bi));
+}
+
+// The value (hi : s) reduced once: s - p when (hi : s) >= p, else s (the
+// reference's single conditional subtract; hi is a carry or overflow word).
+__device__ __forceinline__ Fe reduce_once(const Fe& s, uint32_t hi, const FieldConsts& F) {
+  Fe d;
+  uint32_t br = sub8(d, s, F.p);
+  bool ge = (hi != 0) || (br == 0);
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) r.w[j] = ge ? d.w[j] : s.w[j];
+  return r;
+}
 
 // a + b mod p (reference _madd: carry chain, then one conditional subtract
 // taken when there is no borrow out of s - p or the sum carried out of 2^256).
 __device__ __forceinline__ Fe fe_add(const Fe& a, const Fe& b, const FieldConsts& F) {
-  Fe s, d;
-  uint64_t c = 0;
+  Fe s;
+  uint32_t c = add8(s, a, b);
+  return reduce_once(s, c, F);
+}
+
+// a + a mod p: fe_add(a, a), bit for bit, with the sum as a one-bit funnel
+// shift (no carry chain).
+__device__ __forceinline__ Fe fe_dbl(const Fe& a, const FieldConsts& F) {
+  Fe s;
+  s.w[0] = a.w[0] << 1;
 #pragma unroll
-  for (int j = 0; j < kWords; j++) {
-    c += (uint64_t)a.w[j] + b.w[j];
-    s.w[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  uint32_t carry = (uint32_t)c;
-  int64_t br = 0;
-#pragma unroll
-  for (int j = 0; j < kWords; j++) {
-    int64_t v = (int64_t)s.w[j] - F.p[j] + br;
-    d.w[j] = (uint32_t)v;
-    br = v >> 32;  // 0 or -1
-  }
-  bool ge = (br == 0) || (carry != 0);
-  return ge ? d : s;
+  for (int j = 1; j < kWords; j++) s.w[j] = __funnelshift_l(a.w[j - 1], a.w[j], 1);
+  return reduce_once(s, a.w[kWords - 1] >> 31, F);
 }
 
 // a - b mod p (reference _msub: subtract with borrow; on a borrow add p back,
 // dropping the carry out of 2^256).
 __device__ __forceinline__ Fe fe_sub(const Fe& a, const Fe& b, const FieldConsts& F) {
-  Fe d;
-  int64_t br = 0;
+  Fe d, q, r;
+  uint32_t br = sub8(d, a, b);
 #pragma unroll
-  for (int j = 0; j < kWords; j++) {
-    int64_t v = (int64_t)a.w[j] - b.w[j] + br;
-    d.w[j] = (uint32_t)v;
-    br = v >> 32;
-  }
-  if (br != 0) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < kWords; j++) {
-      c += (uint64_t)d.w[j] + F.p[j];
-      d.w[j] = (uint32_t)c;
-      c >>= 32;
-    }
-  }
-  return d;
+  for (int j = 0; j < kWords; j++) q.w[j] = F.p.w[j] & br;
+  add8(r, d, q);
+  return r;
 }
 
-// Montgomery product a*b*2^-256 mod p, CIOS over 32-bit digits.
+// Montgomery product a*b*2^-256 mod p, CIOS over 32-bit digits: per digit
+// b_i, t += a*b_i, then t += m*p with m = t[0]*n0 (t[0] becomes 0) and a
+// one-word shift. For every pair of 256-bit inputs t stays below 2^290
+// inside a step (ten words) and below 2^258 after it; t[8] is then the
+// overflow word of the final subtract. (Keeping the low and the high
+// halves in two accumulators, two carry chains a row, measured no faster
+// on the H100: PERF.md section 6.)
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts& F) {
   uint32_t t[kWords + 2];
 #pragma unroll
   for (int j = 0; j < kWords + 2; j++) t[j] = 0;
 #pragma unroll
   for (int i = 0; i < kWords; i++) {
-    uint64_t c = 0;
+    mac_row(t, a, b.w[i]);
+    mac_row(t, F.p, t[0] * F.n0);
 #pragma unroll
-    for (int j = 0; j < kWords; j++) {
-      uint64_t s = (uint64_t)a.w[j] * b.w[i] + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[kWords] + c;
-    t[kWords] = (uint32_t)s;
-    t[kWords + 1] = (uint32_t)(s >> 32);
-    uint32_t m = t[0] * F.n0;
-    s = (uint64_t)m * F.p[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < kWords; j++) {
-      s = (uint64_t)m * F.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[kWords] + c;
-    t[kWords - 1] = (uint32_t)s;
-    t[kWords] = t[kWords + 1] + (uint32_t)(s >> 32);
+    for (int j = 0; j < kWords + 1; j++) t[j] = t[j + 1];
+    t[kWords + 1] = 0;
   }
-  Fe r, d;
+  Fe r;
 #pragma unroll
   for (int j = 0; j < kWords; j++) r.w[j] = t[j];
-  int64_t br = 0;
-#pragma unroll
-  for (int j = 0; j < kWords; j++) {
-    int64_t v = (int64_t)r.w[j] - F.p[j] + br;
-    d.w[j] = (uint32_t)v;
-    br = v >> 32;
-  }
-  bool ge = (br == 0) || (t[kWords] != 0);
-  return ge ? d : r;
+  return reduce_once(r, t[kWords], F);
 }
 
 // 15*t as 16t - t (four doublings and a subtract): b3 = 3b = 15 for both
 // Pasta curves (reference _mul15).
 __device__ __forceinline__ Fe fe_mul15(const Fe& t, const FieldConsts& F) {
-  Fe d = fe_add(t, t, F);
-  d = fe_add(d, d, F);
-  d = fe_add(d, d, F);
-  d = fe_add(d, d, F);
+  Fe d = fe_dbl(t, F);
+  d = fe_dbl(d, F);
+  d = fe_dbl(d, F);
+  d = fe_dbl(d, F);
   return fe_sub(d, t, F);
 }
 
@@ -177,7 +232,7 @@ __device__ __forceinline__ void ec_add_proj(Fe& x3, Fe& y3, Fe& z3,
   t4 = fe_sub(t4, fe_add(t1, t2, F), F);
   Fe xx = fe_mul(fe_add(x1, z1, F), fe_add(x2, z2, F), F);
   Fe yy = fe_sub(xx, fe_add(t0, t2, F), F);
-  xx = fe_add(t0, t0, F);
+  xx = fe_dbl(t0, F);
   t0 = fe_add(xx, t0, F);
   t2 = fe_mul15(t2, F);
   Fe zz = fe_add(t1, t2, F);
@@ -195,7 +250,7 @@ __device__ __forceinline__ void ec_add_proj(Fe& x3, Fe& y3, Fe& z3,
 extern "C" int taiga_set_field(int field, const uint32_t* p, uint32_t n0) {
   if (field < 0 || field > 1) return (int)cudaErrorInvalidValue;
   taiga::FieldConsts c;
-  for (int j = 0; j < taiga::kWords; j++) c.p[j] = p[j];
+  for (int j = 0; j < taiga::kWords; j++) c.p.w[j] = p[j];
   c.n0 = n0;
   return (int)cudaMemcpyToSymbol(taiga::kFields, &c, sizeof(c),
                                  field * sizeof(taiga::FieldConsts));

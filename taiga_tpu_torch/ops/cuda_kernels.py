@@ -44,7 +44,7 @@ def _stale(name: str) -> bool:
     so = _so_path(name)
     if not os.path.exists(so):
         return True
-    deps = [os.path.join(CSRC, f"{name}.cu"), os.path.join(CSRC, "field.cuh")]
+    deps = [os.path.join(CSRC, f) for f in (f"{name}.cu", "field.cuh", "ec_group.cuh")]
     return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
@@ -81,6 +81,7 @@ _ARGTYPES = {
     "ec_add_proj": {
         "taiga_ec_add_proj": [_VP] * 9 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_add_proj_sel": [_VP] * 10 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_horner": [_VP] * 6 + [ctypes.c_int, _I64, ctypes.c_int, ctypes.c_int, _VP],
     },
     "tape_eval": {
         "taiga_tape_eval": [_VP, _I32, _VP, _VP, _I64, _VP, _I64, ctypes.c_int, _VP],

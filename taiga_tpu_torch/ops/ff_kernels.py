@@ -9,6 +9,7 @@ warp's lanes read neighbouring words.
   K1 mont_mul_lm        a*b*R^-1 mod p                 csrc/mont_mul.cu
   K2 ec_add_proj_lm     complete projective add        csrc/ec_add_proj.cu
   K3 ec_add_proj_sel_lm sel ? P1 + P2 : P1             csrc/ec_add_proj.cu
+     ec_horner_lm       K2 chained: a Horner evaluation  csrc/ec_add_proj.cu
   K5 ec_fold_shared_lm  G_lo + [s] G_hi, one shared s  csrc/ec_fold_shared.cu
   K6 ec_add_lm          complete Jacobian add          csrc/ec_add_jac.cu
   K7 ec_add_select_lm   sel ? P1 + P2 : P1 (Jacobian)  csrc/ec_add_jac.cu
@@ -40,8 +41,8 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K7) runs its plain version, on
-    any device. Used to hold the kernels' results against the plain path."""
+    """Within this block every wrapper (K1-K7, ec_horner) runs its plain
+    version, on any device. Used to hold the kernels' results against the plain path."""
     global _force_plain
     prev, _force_plain = _force_plain, True
     try:
@@ -64,11 +65,11 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     return True
 
 
-def check_lm(name: str, t: torch.Tensor, rows: int, B: int):
+def check_lm(name: str, t: torch.Tensor, *shape: int):
     if t.dtype != L.DTYPE:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {L.DTYPE}")
-    if t.shape != (rows, B):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {(rows, B)}")
+    if t.shape != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
 
@@ -226,6 +227,19 @@ def ec_add_select_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return torch.where(m, x3, x1), torch.where(m, y3, y1), torch.where(m, z3, z1)
 
 
+def ec_horner_plain(wx, wy, wz, doublings: int, field: str = "fq"):
+    """Plain version of ec_horner: the loop of K2 adds it replaces. Terms
+    (16, W, L), the most significant last: acc = term[W-1]; for
+    w = W-2 .. 0, `doublings` times acc = acc + acc, then acc = acc + term[w]."""
+    W = wx.shape[1]
+    acc = tuple(v[:, W - 1].clone(memory_format=torch.contiguous_format) for v in (wx, wy, wz))
+    for w in range(W - 2, -1, -1):
+        for _ in range(doublings):
+            acc = ec_add_proj_plain(*acc, *acc, field=field)
+        acc = ec_add_proj_plain(*acc, *(v[:, w].contiguous() for v in (wx, wy, wz)), field=field)
+    return acc
+
+
 FOLD_STEPS = 255  # bits of the shared scalar that the fold reads
 
 
@@ -310,6 +324,28 @@ def ec_add_proj_sel_lm(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return outs
 
 
+def ec_horner_lm(wx, wy, wz, doublings: int, field: str = "fq"):
+    """K2 chained into one launch: the Horner evaluation of ec_horner_plain
+    over terms (16, W, L) limb-major projective (the most significant term
+    last), every add K2's RCB add in the plain version's order, one chain
+    per column. Returns 3 x (16, L)."""
+    if wx.dim() != 3:
+        raise ValueError(f"wx: shape {tuple(wx.shape)}, expected (16, W, L)")
+    W, Lc = wx.shape[1], wx.shape[2]
+    for nm, t in zip(("wx", "wy", "wz"), (wx, wy, wz)):
+        check_lm(nm, t, NLIMBS, W, Lc)
+    if W < 1 or doublings < 0:
+        raise ValueError(f"ec_horner: W = {W}, doublings = {doublings}")
+    if not use_kernel(wx, wy, wz):
+        return ec_horner_plain(wx, wy, wz, doublings, field)
+    outs = tuple(torch.empty((NLIMBS, Lc), dtype=wx.dtype, device=wx.device) for _ in range(3))
+    so = CK.lib("ec_add_proj")
+    CK.check(so.taiga_ec_horner(*map(_ptr, (wx, wy, wz) + outs), W, Lc, doublings,
+                                CK.FIELD_IDS[field], CK.stream_ptr(wx.device)), "ec_horner")
+    ec_horner_lm.launches += 1
+    return outs
+
+
 def ec_add_lm(x1, y1, z1, x2, y2, z2, field: str = "fq"):
     """K6: complete Jacobian addition over (16, B) limb-major points
     (identity Z = 0)."""
@@ -373,6 +409,7 @@ def ec_fold_shared_lm(gx_lo, gy_lo, gz_lo, gx_hi, gy_hi, gz_hi, scalar_limbs,
 mont_mul_lm.launches = 0
 ec_add_proj_lm.launches = 0
 ec_add_proj_sel_lm.launches = 0
+ec_horner_lm.launches = 0
 ec_add_lm.launches = 0
 ec_add_select_lm.launches = 0
 ec_fold_shared_lm.launches = 0

@@ -21,7 +21,10 @@ SINGLE bucket accumulation over W*N lanes:
     or — for large windows — by a blocked tree of K2 (ec_add_proj,
     `_blocked_partials`) plus a fix-up of the blocks that straddle runs;
   * the 2^c bucket sums of each column are weighted by their digit through
-    the digit's bit decomposition (K2 tree + Horner).
+    the digit's bit decomposition (K2 tree + a Horner over the bits).
+
+Each Horner (over the bits, and the general MSM's over its windows) is one
+chained launch (ec_horner_lm), not one K2 launch per add.
 
 Points inside are limb-major projective (16, B) int32 coordinates with the
 identity (0 : 1 : 0). The reference stores a non-finite input as (0, 0) after
@@ -230,7 +233,8 @@ def _bucket_sums(x, y, z, cd, c: int, ncols: int, size: int, field: str):
     """From reduced runs (each run's first lane holds its bucket's sum; keys
     col*2^c + digit, sorted, over `size` lanes) to each column's window sum
     sum_j j*B_j: buckets extracted by searchsorted, weighted through the bits
-    of j (a K2 tree over (c, ncols, 2^c) lanes, then Horner over the bits).
+    of j (a K2 tree over (c, ncols, 2^c) lanes, then one chained Horner
+    over the bits).
     Returns 3 x (16, ..., ncols) projective points."""
     dev = x.device
     batch = tuple(cd.shape[:-1])
@@ -258,16 +262,14 @@ def _bucket_sums(x, y, z, cd, c: int, ncols: int, size: int, field: str):
         nxt = tuple(torch.roll(v.reshape(sh3), -s, dims=-1).reshape(v.shape) for v in t)
         t = _add(t, nxt, field)
 
-    # lane 0 of each (bit, col) row: S_{t,col}; Horner over bits, ncols lanes
+    # lane 0 of each (bit, col) row: S_{t,col}; Horner over the bits, one
+    # chained launch over the (batch x ncols) lanes: terms (16, c, lanes)
     sel = ((torch.arange(c, device=dev)[:, None] * ncols
             + torch.arange(ncols, device=dev)[None, :]) * nbuckets).reshape(-1)
-    s_t = tuple(v.index_select(-1, sel).reshape((16,) + batch + (c, ncols)) for v in t)
-    acc = tuple(v[..., c - 1, :] for v in s_t)
-    for i in range(c - 1):
-        b = c - 2 - i
-        acc = _add(acc, acc, field)
-        acc = _add(acc, tuple(v[..., b, :] for v in s_t), field)
-    return acc
+    s_t = (v.index_select(-1, sel).reshape((16,) + batch + (c, ncols)) for v in t)
+    terms = tuple(v.movedim(-2, 1).reshape(16, c, -1).contiguous() for v in s_t)
+    acc = FK.ec_horner_lm(*terms, 1, field)
+    return tuple(v.view((16,) + batch + (ncols,)) for v in acc)
 
 
 def _window_reduce_multi(pts_lm, dcomp, field: str, c: int, ncols: int, n: int,
@@ -348,17 +350,6 @@ def _gather_sorted(pts, pidx):
                  for v in pts)
 
 
-def _horner_windows(ws, c: int, field: str):
-    """Combine window sums 3 x (16, W, L) most significant first:
-    acc = [2^c] acc + w, as c K2 doublings and one K2 add per window."""
-    acc = tuple(v[:, -1] for v in ws)
-    for w in range(ws[0].shape[1] - 2, -1, -1):
-        for _ in range(c):
-            acc = _add(acc, acc, field)
-        acc = _add(acc, tuple(v[:, w] for v in ws), field)
-    return acc
-
-
 def _to_jacobian(X, Y, Z, field: str):
     """Projective (L, 16) rows (X : Y : Z) -> Jacobian (X*Z, Y*Z^2, Z)."""
     spec = L.FIELDS[field]
@@ -382,7 +373,8 @@ def msm(px, py, pz, scalar_limbs, field: str = "fq", c: int = WINDOW_BITS,
     digits = _digits_all(scalar_limbs, c)  # (W, N)
     d, order = torch.sort(digits, dim=-1, stable=True)
     ws = _window_reduce(_gather_sorted(pp, order), d, field, c, digits.shape[1])
-    X, Y, Z = (v[:, 0][None, :] for v in _horner_windows(ws, c, field))  # (1, 16)
+    # windows most significant last: acc = [2^c] acc + w, one chained launch
+    X, Y, Z = (v[:, 0][None, :] for v in FK.ec_horner_lm(*ws, c, field))  # (1, 16)
     xz, yz2, Z = _to_jacobian(X, Y, Z, field)
     return torch.stack([xz[0], yz2[0], Z[0]])
 
@@ -404,7 +396,7 @@ def msm_multi(px, py, pz, scalars, field: str = "fq", c: int = WINDOW_BITS,
     d, order = torch.sort(comp, dim=-1, stable=True)
     pts = _gather_sorted(pp, order % n)  # shared point set: same points for every column
     ws = _window_reduce_multi(pts, d, field, c, ncols, n, compact)  # 3 x (16, W, ncols)
-    X, Y, Z = _horner_windows(ws, c, field)  # (16, ncols)
+    X, Y, Z = FK.ec_horner_lm(*ws, c, field)  # (16, ncols): the windows' Horner
     xz, yz2, Zt = _to_jacobian(X.T, Y.T, Z.T, field)
     return torch.stack([xz, yz2, Zt], dim=1)
 

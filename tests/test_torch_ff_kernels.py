@@ -1,7 +1,8 @@
 """Plain versions of the port's field and point kernels (K1 mont_mul_lm, K2
 ec_add_proj_lm, K3 ec_add_proj_sel_lm, K5 ec_fold_shared_lm, K6 ec_add_lm,
 K7 ec_add_select_lm; taiga_tpu_torch.ops.ff_kernels) against the JAX
-package's kernels of the same name, both fields, exact equality. A wrapper
+package's kernels of the same name, both fields, exact equality; and K2
+chained (ec_horner_lm) against the loop of K2 adds it replaces. A wrapper
 takes its plain version only because its tensors lie on the CPU; the CUDA
 kernels are held against these plain versions on the card by chip_smoke.py.
 
@@ -308,3 +309,59 @@ def test_fold_wrapper_rejects_bad_scalar():
         TFK.ec_fold_shared_lm(a, a, a, a, a, a, torch.zeros((16, 1), dtype=torch.int32))
     with pytest.raises(TypeError):
         TFK.ec_fold_shared_lm(a, a, a, a, a, a, torch.zeros((1, 16), dtype=torch.int64))
+
+
+def _horner_loop(terms, doublings, field):
+    """The loop of K2 adds that ec_horner replaces (the MSMs' Horners)."""
+    acc = tuple(v[:, -1].contiguous() for v in terms)
+    for w in range(terms[0].shape[1] - 2, -1, -1):
+        for _ in range(doublings):
+            acc = TFK.ec_add_proj_lm(*acc, *acc, field=field)
+        acc = TFK.ec_add_proj_lm(*acc, *(v[:, w].contiguous() for v in terms), field=field)
+    return acc
+
+
+@pytest.mark.parametrize("field", ["fp", "fq"])
+@pytest.mark.parametrize("W,d,Lc", [(32, 8, 2), (8, 1, 8)], ids=["windows", "bits"])
+def test_ec_horner_plain_equals_the_k2_loop(field, W, d, Lc):
+    """The chained Horner at the MSMs' shapes (32 windows of 8 doublings,
+    8 bits of 1), limb for limb, with identity terms: the most significant
+    term of column 0 (the chain starts at the identity) and a middle term of
+    the last column."""
+    rng = np.random.default_rng(20 + W)
+    p1, _ = _points(rng, field)  # 64 lanes: W * Lc of them
+    terms = [v[:, : W * Lc].reshape(16, W, Lc) for v in p1]
+    ident = [TL.int_to_limbs(0), TL.FIELDS[field].one_mont, TL.int_to_limbs(0)]
+    for c in range(3):
+        terms[c][:, W - 1, 0] = ident[c]
+        terms[c][:, W // 2, Lc - 1] = ident[c]
+    t = [torch.as_tensor(np.ascontiguousarray(v, dtype=np.int32)) for v in terms]
+    got = TFK.ec_horner_lm(*t, d, field=field)
+    want = _horner_loop(t, d, field)
+    for g, w in zip(got, want):
+        assert g.shape == (16, Lc) and g.is_contiguous()
+        assert torch.equal(g, w)
+    # the chain's sum, as a group element: sum_w [2^(d w)] term_w
+    pts = list(zip(*(_to_affine(field, *(v[:, w] for v in terms)) for w in range(W))))
+    sums = [sum((pt * (1 << (d * w)) for w, pt in enumerate(col)), CURVES[field].identity())
+            for col in pts]
+    assert _to_affine(field, *(g.numpy().astype(np.int64) for g in got)) == sums
+
+
+def test_ec_horner_wrapper_rejects_bad_inputs():
+    t = torch.zeros((16, 4, 2), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        TFK.ec_horner_lm(t.long(), t, t, 1)
+    with pytest.raises(ValueError):  # not (16, W, L)
+        TFK.ec_horner_lm(t[:, 0], t[:, 0], t[:, 0], 1)
+    with pytest.raises(ValueError):  # shapes differ
+        TFK.ec_horner_lm(t, t, t[:, :3].contiguous(), 1)
+    with pytest.raises(ValueError):  # not contiguous
+        nc = torch.zeros((16, 2, 4), dtype=torch.int32).transpose(1, 2)
+        TFK.ec_horner_lm(nc, nc, nc, 1)
+    with pytest.raises(ValueError):  # no term
+        e = torch.zeros((16, 0, 2), dtype=torch.int32)
+        TFK.ec_horner_lm(e, e, e, 1)
+    with pytest.raises(ValueError):
+        TFK.ec_horner_lm(t, t, t, -1)
+    assert TFK.ec_horner_lm.launches == 0  # a CPU call never counts as a launch

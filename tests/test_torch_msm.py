@@ -183,6 +183,31 @@ def test_msm_multi_projective_with_identity_padding():
     assert _affine(_points_of(out, VestaPoint)) == [_j_host(jpts, c) for c in cols]
 
 
+def test_msm_horners_are_chained_launches(monkeypatch):
+    """Each Horner of the general MSM (over the bits of every window's
+    bucket digits, then over the windows) is one ec_horner_lm call, and the
+    MSM keeps its result; so is the bit Horner of a fixed-base chunk."""
+    calls = []
+    horner = TM.FK.ec_horner_lm
+
+    def spy(wx, wy, wz, doublings, field):
+        calls.append((wx.shape[1], doublings, wx.shape[2]))
+        return horner(wx, wy, wz, doublings, field)
+
+    monkeypatch.setattr(TM.FK, "ec_horner_lm", spy)
+    jpts, tpts, cols, limbs = _general_inputs("fq", 16, 2, 66)
+    pts = [_t(v) for v in ec.points_to_device(tpts)]
+    out = TM.msm(*pts, _t(limbs[0]), field="fq", c=4)
+    got = ec.points_from_device((out[0][None], out[1][None], out[2][None]), VestaPoint)
+    assert _affine(got) == [_j_host(jpts, cols[0])]
+    # 64 windows of 4 bits: the bits of all windows' digits, then the windows
+    assert calls == [(4, 1, 64), (64, 4, 1)]
+    calls.clear()
+    out = TM.msm_multi(*pts, _t(limbs), field="fq", c=4)
+    assert _affine(_points_of(out, VestaPoint)) == [_j_host(jpts, c) for c in cols]
+    assert calls == [(4, 1, 128), (64, 4, 2)]
+
+
 def test_msm_all_zero_scalars():
     _, tpts, _, _ = _general_inputs("fq", 8, 1, 63)
     out = TM.msm(*(_t(v) for v in ec.points_to_device(tpts)), _t(np.zeros((8, 16))), field="fq")
