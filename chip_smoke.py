@@ -11,32 +11,43 @@ exit code and no result line:
      bit: on seeded inputs with the edge cases at n = 8192 lanes for the
      field and point kernels, and at the width of each kernel's widest
      launch in a warm proof, where it is also timed (device time per launch
-     from a torch.profiler trace; the compliance tape over the
-     8n = 65,536-lane coset for the tape interpreter). The IPA fold K5 is
-     checked at 4,096, 100 and 1 lanes with the scalars 0, 1, q - 1 and a
-     random one, identities and a lane whose sum is the identity, and timed
-     at each of the three widths; the Jacobian adds K6/K7 at 8,192 lanes
-     with P + P, P + (-P) and identities, and timed at 1,048,576 lanes
-     beside K2; the chained Horner of K2 (ec_horner) on both fields at
-     every shape a proof gives it (32 windows of 8 doublings over 1 and 2
-     columns; 8 bits of 1 doubling over 8, 32 and 64 columns, the last two
-     over several blocks), with identity terms and a column whose
-     last add meets its own negation, and timed at each shape (these with
-     CUDA events: a launch is a long dependent chain);
+     from a torch.profiler trace). K3 at 262,144 lanes with half the lanes
+     selected at random, none, all, and one in 32, timed at each; its
+     chained form ec_seg_rounds at the shapes of a fixed-base chunk's
+     bucket pass: phase B (262,144 lanes of mixed blocks, all 7 rounds in
+     one tile launch; also against one launch a round, and timed in both
+     forms) and phase C (20,480 lanes, 15 launches), and at the general
+     MSMs' rows of 32 windows (32 x 2,048 lanes, 11 launches; 32 x 4,096
+     lanes, 6 launches; 32 x 1,024 compacted lanes, 10 launches), on both
+     fields, timed at each; the compliance tape over the 8n = 65,536-lane
+     coset for the tape interpreter, with the register count of its
+     scheduled tape, the lanes a block and the host's scheduling time. The IPA
+     fold K5 is checked at 4,096, 100 and 1 lanes with the scalars 0, 1,
+     q - 1 and a random one, identities and a lane whose sum is the
+     identity, and timed at each of the three widths; the Jacobian adds
+     K6/K7 at 8,192 lanes with P + P, P + (-P) and identities, and timed at
+     1,048,576 lanes beside K2; the chained Horner of K2 (ec_horner) on
+     both fields at every shape a proof gives it (32 windows of 8 doublings
+     over 1 and 2 columns; 8 bits of 1 doubling over 8, 32 and 64 columns,
+     the last two over several blocks), with identity terms and a column
+     whose last add meets its own negation, and timed at each shape (these
+     with CUDA events: a launch is a long dependent chain);
   5. prove one compliance (Action) proof at k = 13 on the card with seeded
-     blinds, cold and then warm, with the native (host) IPA open: counts of
-     kernel launches are zeroed just before each proof and read just after;
-     the proof must verify and equal, byte for byte, a second proof made
-     through the plain versions on the card under the same seed. Then the
-     same statement, warm, with the device IPA open (ipa="device"): it must
-     equal the native-IPA proof byte for byte, launch K5 once per IPA round
-     and K2 fewer than 400 times (each MSM's Horner chains are ec_horner
-     launches, which both proofs must make), and verify on the native
-     engine and through the device MSM (msm_device="cuda"); the device
-     MSM's final check must refuse it with its a0 changed, and the verifier
-     must refuse it for a changed instance. A profiled device-IPA proof,
-     which launches K1-K5 and ec_horner, gives each kernel's device time
-     per proof and the device's busy time;
+     blinds, cold (recording the selected share of every K3-family launch,
+     as a histogram) and then warm, with the native (host) IPA open: counts
+     of kernel launches are zeroed just before each proof and read just
+     after; the proof must verify and equal, byte for byte, a second proof
+     made through the plain versions on the card under the same seed. Then
+     the same statement, warm, with the device IPA open (ipa="device"): it
+     must equal the native-IPA proof byte for byte, launch K5 once per IPA
+     round and K2 fewer than 400 times (each MSM's Horner chains are
+     ec_horner launches, which both proofs must make), and verify on the
+     native engine and through the device MSM (msm_device="cuda"); the
+     device MSM's final check must refuse it with its a0 changed, and the
+     verifier must refuse it for a changed instance. A profiled device-IPA
+     proof, which launches K1, K2, K4, K5, ec_seg_rounds and ec_horner,
+     gives each kernel's device time per proof, the device's busy time and
+     its number of device operations;
   6. print per-stage wall times of both warm proofs beside the card's name
      and power limit, one JSON line of per-kernel numbers, and last
      {"ok": true, "device": {...}}.
@@ -63,6 +74,11 @@ N = 1 << K          # lanes of the edge-case checks of K1-K3: the SRS size
 W_MONT_MUL = 8 * N            # the quotient's division by Z_H over the 8n coset
 W_EC_ADD = 8 * 32 * N // 2    # msm._blocked_partials: first tree level, 8 columns x 32 windows
 W_EC_ADD_SEL = 8 * 256 * 128  # msm._blocked_partials: 8 x 256 mixed blocks of 128 lanes
+SEL_CASES = ("half", "zero", "one", "1in32")  # K3's selections: K3 is timed at each
+# ec_seg_rounds at the shapes of a fixed-base chunk (8 columns, c = 8, k = 13)
+# of msm._blocked_partials: phase B, the mixed blocks' rounds (tile 128),
+# and phase C, the merge's rounds over 16,384 block sums + 4,096 partials
+SEG_COLS, SEG_BUCKETS, SEG_BLOCK = 8, 256, 128
 W_FOLD = N // 2               # the IPA's first generator fold
 FOLD_WIDTHS = (W_FOLD, 100, 1)  # the widest fold, and widths below and off a block
 # ec_horner's shapes (W terms, doublings, L columns) in a proof: the window
@@ -77,8 +93,9 @@ HBM_BYTES_PER_S = 3.35e12
 MM_IMADS = 2 * 2 * 64 + 8  # one 8x32-bit CIOS product: lo+hi of 128 word products, 8 m's
 KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "mont_mul": ("k_mont_mul",),
-    "ec_add_proj": ("k_ec_add_proj<false>", "k_ec_add_projILb0E"),
-    "ec_add_proj_sel": ("k_ec_add_proj<true>", "k_ec_add_projILb1E"),
+    "ec_add_proj": ("k_ec_add_proj",),
+    "ec_add_proj_sel": ("k_ec_add_sel",),
+    "ec_seg_rounds": ("k_ec_seg_round", "k_ec_seg_tile"),
     "tape_eval": ("k_tape_eval",),
     "ec_fold_shared": ("k_ec_fold_shared",),
     "ec_horner": ("k_ec_horner",),
@@ -120,8 +137,9 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_trace(fn):
     """Run fn under torch.profiler (device activity only). Returns each
-    kernel's device time per launch in ms ({name: [ms, ...]}) and the
-    device's busy time in ms (every kernel, copy and fill; one stream)."""
+    kernel's device time per launch in ms ({name: [ms, ...]}), the
+    device's busy time in ms (every kernel, copy and fill; one stream) and
+    the number of those device operations."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -130,28 +148,29 @@ def device_trace(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    per, busy = {name: [] for name in KERNEL_SYMBOLS}, 0.0
+    per, busy, ops = {name: [] for name in KERNEL_SYMBOLS}, 0.0, 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         ms = e.time_range.elapsed_us() / 1e3
         busy += ms
+        ops += 1
         for name, syms in KERNEL_SYMBOLS.items():
             if any(s in e.name for s in syms):
                 per[name].append(ms)
-    return per, busy
+    return per, busy, ops
 
 
-def kernel_ms(name: str, fn, reps: int) -> float:
+def kernel_ms(name: str, fn, reps: int, per_call: int = 1) -> float:
     """Device time per launch of kernel `name`, over `reps` calls of fn
-    (each launching it once), from the profiler: the wrapper's host work
-    between launches is not counted. The trace may miss a launch now and
-    then, so the mean is over the launches it saw, at least half."""
+    (each launching it `per_call` times), from the profiler: the wrapper's
+    host work between launches is not counted. The trace may miss a launch
+    now and then, so the mean is over the launches it saw, at least half."""
     fn()
-    per, _ = device_trace(lambda: [fn() for _ in range(reps)])
+    per, _, _ = device_trace(lambda: [fn() for _ in range(reps)])
     seen = per[name]
-    if 2 * len(seen) < reps:
-        raise AssertionError(f"{name}: the profiler saw {len(seen)} of {reps} launches")
+    if 2 * len(seen) < reps * per_call:
+        raise AssertionError(f"{name}: the profiler saw {len(seen)} of {reps * per_call} launches")
     return sum(seen) / len(seen)
 
 
@@ -430,23 +449,7 @@ def phase_kernels(pk, seed: int, dev):
     log(f"K2 ec_add_proj     equal on fp and fq at B={N} and on fq at B={B2}; "
         f"at B={B2}: {ms2:.6f} ms per launch (plain {pms2:.3f} ms)")
 
-    B3 = W_EC_ADD_SEL
-    pts = [wide_fe(gen, B3, dev) for _ in range(6)]
-    sel = torch.randint(0, 2, (1, B3), generator=gen, dtype=torch.int32, device=dev)
-    n_sel = int(sel.sum())
-    got = FK.ec_add_proj_sel_lm(*pts, sel, "fq")
-    with FK.plain_versions():
-        errs3.append(compare("ec_add_proj_sel[fq, wide]", got,
-                             FK.ec_add_proj_sel_lm(*pts, sel, "fq")))
-        pms3 = cuda_ms(lambda: FK.ec_add_proj_sel_lm(*pts, sel, "fq"), 1)
-    ms3 = kernel_ms("ec_add_proj_sel", lambda: FK.ec_add_proj_sel_lm(*pts, sel, "fq"), 50)
-    # P1 read and the sum written on every lane, P2 read where sel is set
-    res["ec_add_proj_sel"] = dict(err=max(errs3), ms=ms3, plain_ms=pms3, B=B3,
-                                  bound=bound_ms(fe * (6 * B3 + 3 * n_sel) + 4 * B3,
-                                                 12 * MM_IMADS * n_sel))
-    log(f"K3 ec_add_proj_sel equal on fp and fq at B={N} and on fq at B={B3}; "
-        f"at B={B3} ({n_sel} selected): {ms3:.6f} ms per launch (plain {pms3:.3f} ms)")
-    del pts, got
+    res.update(phase_select(rng, gen, dev, max(errs3)))
 
     # K4: the compliance quotient tape over the extended coset
     vk, cs = pk.vk, pk.vk.cs
@@ -463,6 +466,13 @@ def phase_kernels(pk, seed: int, dev):
         v[..., 15] &= 0x3FFF
         ks[kind] = torch.as_tensor(v, device=dev)
     svals = [int(v) for v in rng.integers(1, 1 << 62, size=len(tape.scalar_exprs))]
+    # the tape the kernel runs, scheduled once on the host and kept on the tape
+    t0 = time.perf_counter()
+    scode, regs = TD.device_code(tape, TD.table_offsets(ks)[0], D)
+    t_sched = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    TD.device_code(tape, TD.table_offsets(ks)[0], D)
+    t_kept = time.perf_counter() - t0
     got = TD.tape_eval_device(tape, ks, svals, D)
     with FK.plain_versions():
         want = TD.tape_eval_device(tape, ks, svals, D)
@@ -474,13 +484,190 @@ def phase_kernels(pk, seed: int, dev):
     n_mul = int(((code[:, 0] == TD.OP_MUL) | (code[:, 0] == TD.OP_MULS)).sum())
     tc = sum(counts.values())
     tbytes = tc * 16 * 4 * (D + TD.LPAD + TD.RPAD) + code.nbytes + 16 * 4 * D
+    n_sc = len(svals)
     res["tape_eval"] = dict(err=err4, ms=ms4, plain_ms=pms4, B=D,
                             bound=bound_ms(tbytes, n_mul * MM_IMADS * D))
-    log(f"K4 tape_eval       D={D}, {code.shape[0]} instructions ({n_mul} products), "
-        f"{tape.num_regs} registers: equal; {ms4:.6f} ms per launch (plain {pms4:.1f} ms)")
+    log(f"K4 tape_eval       D={D}, the tape's {code.shape[0]} instructions ({n_mul} products) "
+        f"over {tape.num_regs} registers scheduled into {scode.shape[0]} over {regs} registers, "
+        f"{TD.BLOCK_LANES} lanes a block ({TD.file_bytes(regs, n_sc)} B of shared memory): "
+        f"equal; {ms4:.6f} ms per launch (plain {pms4:.1f} ms); scheduling on the host "
+        f"{t_sched * 1e3:.1f} ms once, {t_kept * 1e3:.3f} ms a later call")
     del ks, got, want
     res.update(phase_fold_and_jacobian(rng, gen, dev))
     res.update(phase_horner(rng, dev))
+    return res
+
+
+def seg_selected(keys, rounds: int, tile: int):
+    """Selected lanes (same run at distance 2^r) of each round of
+    ec_seg_rounds over keys (..., n), as a (rounds,) tensor."""
+    import torch
+
+    n = keys.shape[-1]
+    idx = torch.arange(n, device=keys.device)
+    out = []
+    for r in range(rounds):
+        s = 1 << r
+        same = (idx + s < n) & (keys == torch.roll(keys, -s, dims=-1))
+        if tile:
+            same &= idx % tile + s < tile
+        out.append(same.sum())
+    return torch.stack(out)
+
+
+def seg_keys(gen, dev):
+    """Keys of ec_seg_rounds as _blocked_partials makes them for one
+    fixed-base chunk: SEG_COLS columns of 32 windows x N random digits,
+    keyed col * SEG_BUCKETS + digit and sorted (runs of ~1,000 lanes); phase
+    B gathers the 128-lane blocks that hold a run edge (at most
+    SEG_COLS * SEG_BUCKETS) under block-local keys; phase C sorts the
+    uniform blocks' keys with the in-block run starts (sentinel where
+    none)."""
+    import torch
+
+    total, nb = SEG_COLS * 32 * N, SEG_COLS * 32 * N // SEG_BLOCK
+    keys = torch.sort(torch.randint(0, SEG_COLS * SEG_BUCKETS, (total,), generator=gen,
+                                    device=dev)).values
+    lo, hi = keys[0::SEG_BLOCK], keys[SEG_BLOCK - 1::SEG_BLOCK]
+    mixed = lo != hi
+    maxb = min(SEG_COLS * SEG_BUCKETS, nb)
+    posb = mixed.nonzero()[:maxb, 0]
+    posb = torch.cat([posb, posb[-1:].expand(maxb - posb.numel())])
+    gidx = (posb[:, None] * SEG_BLOCK + torch.arange(SEG_BLOCK, device=dev)).reshape(-1)
+    gkey = keys.index_select(0, gidx)
+    blk = torch.arange(maxb, device=dev).repeat_interleave(SEG_BLOCK)
+    phase_b = (blk * (SEG_COLS * SEG_BUCKETS + 1) + gkey).contiguous()
+    prev = torch.cat([phase_b[:1] ^ 1, phase_b[:-1]])
+    starts = ((torch.arange(phase_b.numel(), device=dev) % SEG_BLOCK == 0)
+              | (phase_b != prev)).nonzero()[:, 0]
+    ecap, sent = 2 * SEG_COLS * SEG_BUCKETS, SEG_COLS * SEG_BUCKETS
+    mkey = torch.full((ecap,), sent, dtype=keys.dtype, device=dev)
+    mkey[:min(ecap, starts.numel())] = gkey[starts[:ecap]]
+    ukey = torch.where(mixed, sent, lo)
+    phase_c = torch.sort(torch.cat([ukey, mkey])).values.contiguous()
+    return phase_b, phase_c
+
+
+def row_keys(gen, dev):
+    """Keys of ec_seg_rounds as the general MSMs (msm, msm_multi: the
+    device IPA's and the device-MSM verifier's) give them, one row of n
+    lanes a window: 32 windows of c = 8 digits, each row sorted. At n =
+    2,048 msm._window_reduce runs log2 n rounds in place; at n = 4,096
+    msm._compact runs 6 rounds (CHUNK), gathers each run's partials at
+    stride CHUNK into 1,024 lanes (sentinel keys beyond them) and runs 10
+    rounds there. Returns {name: (keys, rounds)}."""
+    import torch
+    from taiga_tpu_torch.ops import msm as TM
+
+    c, out = TM.WINDOW_BITS, {}
+    d2 = torch.sort(torch.randint(0, 1 << c, (32, 2048), generator=gen, device=dev), -1).values
+    out["rows 32 x 2048"] = (d2.contiguous(), 11)
+    d4 = torch.sort(torch.randint(0, 1 << c, (32, 4096), generator=gen, device=dev), -1).values
+    out["rows 32 x 4096"] = (d4.contiguous(), TM._CHUNK.bit_length() - 1)
+    n, size = d4.shape[-1], TM._COMPACT
+    idx = torch.arange(n, device=dev)
+    start = torch.cat([torch.ones_like(d4[:, :1], dtype=torch.bool), d4[:, 1:] != d4[:, :-1]], -1)
+    seg = torch.cummax(torch.where(start, idx, -1), -1).values
+    pos = TM._nonzero_sized((idx - seg) % TM._CHUNK == 0, size, n)
+    cd = torch.where(pos < n, TM._take(d4, pos.clamp(max=n - 1)), 1 << c)
+    out["rows 32 x 1024, compacted"] = (cd.contiguous(), size.bit_length() - 1)
+    return out
+
+
+def phase_select(rng, gen, dev, err_edges):
+    """K3 (ec_add_proj_sel) and K3 chained (ec_seg_rounds) against their
+    plain versions, bit for bit; then timed. K3 at its widest launch with
+    half the lanes selected at random, none, all, and one in 32; the rounds
+    at phase B's shape (one tile launch, and one launch a round) and phase
+    C's (one launch a round), and at the general MSMs' rows of windows
+    (row_keys: one launch a round), on both fields."""
+    import torch
+    from taiga_tpu_torch.ops import ff_kernels as FK
+
+    res = {}
+    fe = 16 * 4
+    B3 = W_EC_ADD_SEL
+    pts = [wide_fe(gen, B3, dev) for _ in range(6)]
+    sels = {"half": torch.randint(0, 2, (1, B3), generator=gen, dtype=torch.int32, device=dev),
+            "zero": torch.zeros((1, B3), dtype=torch.int32, device=dev),
+            "one": torch.ones((1, B3), dtype=torch.int32, device=dev),
+            "1in32": (torch.randint(0, 32, (1, B3), generator=gen, device=dev) == 0).int()}
+    err3, times = err_edges, {}
+    for case in SEL_CASES:
+        sel = sels[case]
+        got = FK.ec_add_proj_sel_lm(*pts, sel, "fq")
+        with FK.plain_versions():
+            err3 = max(err3, compare(f"ec_add_proj_sel[fq, {case}]", got,
+                                     FK.ec_add_proj_sel_lm(*pts, sel, "fq")))
+        times[case] = kernel_ms("ec_add_proj_sel", lambda: FK.ec_add_proj_sel_lm(*pts, sel, "fq"),
+                                50)
+    sel = sels["half"]
+    n_sel = int(sel.sum())
+    with FK.plain_versions():
+        pms3 = cuda_ms(lambda: FK.ec_add_proj_sel_lm(*pts, sel, "fq"), 1)
+    # P1 read and the sum written on every lane, P2 read where sel is set
+    res["ec_add_proj_sel"] = dict(err=err3, ms=times["half"], plain_ms=pms3, B=B3,
+                                  bound=bound_ms(fe * (6 * B3 + 3 * n_sel) + 4 * B3,
+                                                 12 * MM_IMADS * n_sel))
+    log(f"K3 ec_add_proj_sel equal on fp and fq at B={N} and on fq at B={B3} with "
+        f"{', '.join(SEL_CASES)} selected; at B={B3}: "
+        + ", ".join(f"{c} {times[c]:.6f} ms" for c in SEL_CASES)
+        + f" per launch ({n_sel} selected in 'half'; plain {pms3:.3f} ms)")
+    del pts, sels
+
+    phase_b, phase_c = seg_keys(gen, dev)
+    shapes = {"B": (phase_b, SEG_BLOCK.bit_length() - 1, SEG_BLOCK),
+              "C": (phase_c, max(1, (phase_c.numel() - 1).bit_length()), 0)}
+    err, out = 0, {}
+    for field in ("fp", "fq"):
+        for ph, (keys, rounds, tile) in shapes.items():
+            p = [wide_fe(gen, keys.numel(), dev) for _ in range(3)]
+            got = FK.ec_seg_rounds_lm(*p, keys, rounds, field, tile)
+            with FK.plain_versions():
+                want = FK.ec_seg_rounds_lm(*p, keys, rounds, field, tile)
+            err = max(err, compare(f"ec_seg_rounds[{field}, phase {ph}]", got, want))
+            if tile:  # the tile form equals one launch a round where no run crosses a tile
+                err = max(err, compare(f"ec_seg_rounds[{field}, phase {ph}, per round]",
+                                       FK.ec_seg_rounds_lm(*p, keys, rounds, field), want))
+            if field == "fq":
+                out[ph] = p
+    rows = row_keys(gen, dev)
+    for field in ("fp", "fq"):
+        for name, (keys, rounds) in rows.items():
+            p = [wide_fe(gen, keys.numel(), dev).view((16,) + tuple(keys.shape))
+                 for _ in range(3)]
+            got = FK.ec_seg_rounds_lm(*p, keys, rounds, field)
+            with FK.plain_versions():
+                want = FK.ec_seg_rounds_lm(*p, keys, rounds, field)
+            err = max(err, compare(f"ec_seg_rounds[{field}, {name}]", got, want))
+            if field == "fq":
+                out[name] = p
+
+    def seg_ms(p, keys, rounds, tile):
+        launches = 1 if tile else rounds
+        return kernel_ms("ec_seg_rounds",
+                         lambda: FK.ec_seg_rounds_lm(*p, keys, rounds, "fq", tile), 10,
+                         launches) * launches, launches
+
+    cases = [(f"phase {ph}", out[ph], keys, rounds, tile)
+             for ph, (keys, rounds, tile) in shapes.items()]
+    cases += [(name, out[name], keys, rounds, 0) for name, (keys, rounds) in rows.items()]
+    for name, p, keys, rounds, tile in cases:
+        B = keys.numel()
+        ms, launches = seg_ms(p, keys, rounds, tile)
+        with FK.plain_versions():
+            pms = cuda_ms(lambda: FK.ec_seg_rounds_lm(*p, keys, rounds, "fq", tile), 1)
+        adds = int(seg_selected(keys, rounds, tile).sum())
+        bound = bound_ms(fe * 6 * B + 8 * B, 12 * MM_IMADS * adds)
+        per_round = ""
+        if tile:  # the same rounds, one launch each (equal on these keys: checked above)
+            per_round = f"; one launch a round {seg_ms(p, keys, rounds, 0)[0]:.6f} ms"
+        log(f"ec_seg_rounds      {name}: {tuple(keys.shape)} lanes, {rounds} rounds"
+            f"{f', tile {tile}' if tile else ''}, {adds} adds ({adds / (B * rounds):.3f} of "
+            f"lanes x rounds), equal on fp and fq; {ms:.6f} ms in {launches} launch(es)"
+            f"{per_round} (bound {bound[0]:.6f} ms by {bound[1]}; plain {pms:.3f} ms)")
+        if name == "phase B":
+            res["ec_seg_rounds"] = dict(err=err, ms=ms, plain_ms=pms, B=B, bound=bound)
     return res
 
 
@@ -667,8 +854,12 @@ KERNELS = [
      "taiga_tpu/ops/ff_kernels.py:428", ("native", "device")),
     ("ec_add_proj", "ec_add_proj_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
      "taiga_tpu/ops/ff_kernels.py:547", ("native", "device")),
+    # K3's rounds on both paths go through ec_seg_rounds, its chained form
     ("ec_add_proj_sel", "ec_add_proj_sel_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/ff_kernels.py:511", ("native", "device")),
+     "taiga_tpu/ops/ff_kernels.py:511", ()),
+    # K3 chained: the segmented rounds over K3 of the MSMs' bucket passes
+    ("ec_seg_rounds", "ec_seg_rounds_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
+     "taiga_tpu/ops/msm.py:74-90", ("native", "device")),
     # K2 chained: the scan over K2 that combines an MSM's windows (and its
     # bit Horner, :158-173)
     ("ec_horner", "ec_horner_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
@@ -707,11 +898,11 @@ def read_counts(what: str, path: str) -> dict:
 
 def profiled(prove, path: str, launches: dict):
     """One proof under the profiler: each kernel's device time over its
-    launches, and the device's busy time."""
+    launches, the device's busy time and its number of operations."""
     t0 = time.perf_counter()
-    per, busy = device_trace(prove)
+    per, busy, ops = device_trace(prove)
     log(f"  under the profiler ({time.perf_counter() - t0:.2f} s with the profiler): "
-        f"device busy {busy:.3f} ms in all")
+        f"device busy {busy:.3f} ms in all, {ops} device operations (kernels, copies, fills)")
     for name, _, _, _, paths in KERNELS:
         if path not in paths:
             continue
@@ -730,7 +921,7 @@ def phase_prove(pk, seed: int):
     import torch
     import taiga_tpu_torch as T
     from taiga_tpu_torch.crypto.fields import Fp
-    from taiga_tpu_torch.ops import ff_kernels as FK
+    from taiga_tpu_torch.ops import ff_kernels as FK, msm as TM
     from taiga_tpu_torch.plonk.prover import StageTimer
     from taiga_tpu_torch.plonk.verifier import verify_proof
 
@@ -738,13 +929,32 @@ def phase_prove(pk, seed: int):
         return T.prove_compliance(random.Random(seed), K, device="cuda",
                                   randbits=seeded_randbits(seed + 1), **kw)
 
+    # the cold proof records the selected share of each K3-family launch.
+    # The keys are made inside ops/msm.py and never leave it, so msm sees
+    # ff_kernels through a view whose ec_seg_rounds_lm records them first;
+    # ff_kernels itself is left as it is, so every launch and its count are
+    # the wrapper's own, and the view is taken away when the proof ends
+    selected = []
+
+    class Recorded:
+        def __getattr__(self, name):
+            return getattr(FK, name)
+
+        def ec_seg_rounds_lm(self, x, y, z, keys, rounds, field="fq", tile=0):
+            selected.append((keys.numel(), rounds, tile, seg_selected(keys, rounds, tile)))
+            return FK.ec_seg_rounds_lm(x, y, z, keys, rounds, field, tile)
+
     zero_counts()
+    TM.FK = Recorded()
     t0 = time.perf_counter()
-    vk, inst, proof = prove()
+    try:
+        vk, inst, proof = prove()
+    finally:
+        TM.FK = FK
     t_cold = time.perf_counter() - t0
     cold = read_counts("cold", "native")
-    log(f"proof, cold (also builds the SRS table and the static tables once): {t_cold:.2f} s, "
-        f"{len(proof)} bytes; launches {cold}")
+    log(f"proof, cold (also builds the SRS table and the static tables once; its K3-family "
+        f"launches measured, below): {t_cold:.2f} s, {len(proof)} bytes; launches {cold}")
     if not verify_proof(vk, inst, proof):
         raise AssertionError("the compliance proof does not verify")
     log("proof verifies under taiga_tpu_torch.plonk.verifier")
@@ -758,6 +968,20 @@ def phase_prove(pk, seed: int):
     log(f"proof, warm: {t_warm:.2f} s; launches {launches}")
     if warm != proof:
         raise AssertionError("a second seeded proof differs from the first")
+    shares = []  # (lanes, selected share) of each K3-family launch
+    for lanes, rounds, tile, sel in selected:
+        sel = sel.tolist()
+        if tile:  # one launch for every round
+            shares.append((lanes, sum(sel) / (lanes * rounds)))
+        else:
+            shares += [(lanes, v / lanes) for v in sel]
+    if len(shares) != launches["ec_seg_rounds"] + launches["ec_add_proj_sel"]:
+        raise AssertionError(f"the cold proof made {len(shares)} K3-family launches, the warm one "
+                             f"{launches['ec_seg_rounds'] + launches['ec_add_proj_sel']}")
+    hist = np.histogram([v for _, v in shares], bins=10, range=(0.0, 1.0))[0]
+    log(f"selected share of the {len(shares)} K3-family launches of a native proof, in tenths "
+        f"from 0 to 1: {hist.tolist()}; lanes x share summed: "
+        f"{sum(n * v for n, v in shares):.0f} of {sum(n for n, _ in shares)} lanes")
 
     # the same statement with the device IPA open
     timer_d = StageTimer("cuda")
@@ -767,6 +991,9 @@ def phase_prove(pk, seed: int):
     t_dev = time.perf_counter() - t0
     launches_d = read_counts("device-IPA", "device")
     log(f"proof with the device IPA open, warm: {t_dev:.2f} s; launches {launches_d}")
+    family = ("ec_add_proj_sel", "ec_seg_rounds")
+    log(f"K3-family launches per warm proof: native {sum(launches[k] for k in family)}, "
+        f"device IPA {sum(launches_d[k] for k in family)}")
     if launches_d["ec_fold_shared"] != K:
         raise AssertionError(f"the device IPA folded {launches_d['ec_fold_shared']} times, not {K}")
     if launches_d["ec_add_proj"] >= MAX_K2_DEVICE_IPA:

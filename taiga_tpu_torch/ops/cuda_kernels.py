@@ -81,10 +81,15 @@ _ARGTYPES = {
     "ec_add_proj": {
         "taiga_ec_add_proj": [_VP] * 9 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_add_proj_sel": [_VP] * 10 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_seg_round": [_VP] * 4 + [_I64, _I64] + [_VP] * 3 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_seg_tile": [_VP] * 4 + [ctypes.c_int, ctypes.c_int] + [_VP] * 3
+                             + [_I64, ctypes.c_int, _VP],
         "taiga_ec_horner": [_VP] * 6 + [ctypes.c_int, _I64, ctypes.c_int, ctypes.c_int, _VP],
     },
     "tape_eval": {
-        "taiga_tape_eval": [_VP, _I32, _VP, _VP, _I64, _VP, _I64, ctypes.c_int, _VP],
+        "taiga_tape_eval": [_VP, _I32, _VP, _I32, _VP, _I64, _I32, _VP, _I64, ctypes.c_int,
+                            _VP],
+        "taiga_tape_max_code": [],
     },
     "ec_fold_shared": {"taiga_ec_fold_shared": [_VP] * 11 + [_I64, ctypes.c_int, _VP]},
     "ec_add_jac": {

@@ -9,6 +9,7 @@ warp's lanes read neighbouring words.
   K1 mont_mul_lm        a*b*R^-1 mod p                 csrc/mont_mul.cu
   K2 ec_add_proj_lm     complete projective add        csrc/ec_add_proj.cu
   K3 ec_add_proj_sel_lm sel ? P1 + P2 : P1             csrc/ec_add_proj.cu
+     ec_seg_rounds_lm   K3 chained: segmented rounds   csrc/ec_add_proj.cu
      ec_horner_lm       K2 chained: a Horner evaluation  csrc/ec_add_proj.cu
   K5 ec_fold_shared_lm  G_lo + [s] G_hi, one shared s  csrc/ec_fold_shared.cu
   K6 ec_add_lm          complete Jacobian add          csrc/ec_add_jac.cu
@@ -41,8 +42,9 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K7, ec_horner) runs its plain
-    version, on any device. Used to hold the kernels' results against the plain path."""
+    """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner)
+    runs its plain version, on any device. Used to hold the kernels'
+    results against the plain path."""
     global _force_plain
     prev, _force_plain = _force_plain, True
     try:
@@ -215,6 +217,28 @@ def ec_add_proj_sel_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return torch.where(m, x3, x1), torch.where(m, y3, y1), torch.where(m, z3, z1)
 
 
+def ec_seg_rounds_plain(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 0):
+    """Plain version of ec_seg_rounds: the segmented Hillis-Steele suffix
+    reduction along the last axis of points (16, ..., n) with int64 keys
+    (..., n), one K3 select-add a round over rolled copies: after round r,
+    lane i holds the sum of its run's elements in [i, i + 2^(r+1)). With
+    tile > 0 the lanes fall into tiles of `tile` and a tile's edges are run
+    edges too."""
+    n = x.shape[-1]
+    idx = torch.arange(n, device=x.device)
+    shape = x.shape
+    for r in range(rounds):
+        s = 1 << r
+        same = (idx + s < n) & (keys == torch.roll(keys, -s, dims=-1))
+        if tile:
+            same &= idx % tile + s < tile
+        nxt = (torch.roll(v, -s, dims=-1).reshape(16, -1) for v in (x, y, z))
+        out = ec_add_proj_sel_plain(*(v.reshape(16, -1) for v in (x, y, z)), *nxt,
+                                    same.reshape(1, -1), field)
+        x, y, z = (o.reshape(shape) for o in out)
+    return x, y, z
+
+
 def ec_add_plain(x1, y1, z1, x2, y2, z2, field: str = "fq"):
     """Plain version of K6."""
     return _ec_add_core(x1, y1, z1, x2, y2, z2, field)
@@ -324,6 +348,51 @@ def ec_add_proj_sel_lm(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return outs
 
 
+SEG_TILE_MAX = 128  # the widest tile of ec_seg_rounds: one block of the kernel
+
+
+def ec_seg_rounds_lm(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 0):
+    """K3 chained: `rounds` rounds of ec_seg_rounds_plain over points
+    (16, ..., n) int32 and keys (..., n) int64, every add K2's RCB add in
+    the plain version's order. tile == 0: one launch a round, computing its
+    select from the keys in the kernel. tile > 0 (a power of two, at most
+    SEG_TILE_MAX, with 2^rounds <= tile and n a multiple of it): one launch
+    for every round, each tile in shared memory. Returns 3 x (16, ..., n)."""
+    shape, n = x.shape, x.shape[-1]
+    for nm, t in zip(("x", "y", "z"), (x, y, z)):
+        check_lm(nm, t, *shape)
+    if shape[0] != NLIMBS:
+        raise ValueError(f"x: shape {tuple(shape)}, expected (16, ..., n)")
+    if keys.dtype != torch.int64 or keys.shape != shape[1:] or not keys.is_contiguous():
+        raise ValueError(f"keys: {keys.dtype} {tuple(keys.shape)}, expected contiguous int64 "
+                         f"{tuple(shape[1:])}")
+    if rounds < 0:
+        raise ValueError(f"ec_seg_rounds: rounds = {rounds}")
+    if tile and (tile < 0 or tile & (tile - 1) or tile > SEG_TILE_MAX or (1 << rounds) > tile
+                 or n % tile):
+        raise ValueError(f"ec_seg_rounds: tile {tile} must be a power of two <= {SEG_TILE_MAX} "
+                         f"dividing n = {n}, with 2^rounds = {1 << rounds} <= tile")
+    if not use_kernel(x, y, z, keys):
+        return ec_seg_rounds_plain(x, y, z, keys, rounds, field, tile)
+    B = x.numel() // NLIMBS
+    so, fid, stream = CK.lib("ec_add_proj"), CK.FIELD_IDS[field], CK.stream_ptr(x.device)
+    if tile:
+        outs = tuple(torch.empty_like(x) for _ in range(3))
+        CK.check(so.taiga_ec_seg_tile(*map(_ptr, (x, y, z, keys)), tile, rounds,
+                                      *map(_ptr, outs), B, fid, stream), "ec_seg_tile")
+        ec_seg_rounds_lm.launches += 1
+        return outs
+    pts, bufs = (x, y, z), [tuple(torch.empty_like(x) for _ in range(3))
+                            for _ in range(min(rounds, 2))]
+    for r in range(rounds):
+        out = bufs[r % 2]
+        CK.check(so.taiga_ec_seg_round(*map(_ptr, pts + (keys,)), 1 << r, n, *map(_ptr, out),
+                                       B, fid, stream), "ec_seg_round")
+        ec_seg_rounds_lm.launches += 1
+        pts = out
+    return pts
+
+
 def ec_horner_lm(wx, wy, wz, doublings: int, field: str = "fq"):
     """K2 chained into one launch: the Horner evaluation of ec_horner_plain
     over terms (16, W, L) limb-major projective (the most significant term
@@ -409,6 +478,7 @@ def ec_fold_shared_lm(gx_lo, gy_lo, gz_lo, gx_hi, gy_hi, gz_hi, scalar_limbs,
 mont_mul_lm.launches = 0
 ec_add_proj_lm.launches = 0
 ec_add_proj_sel_lm.launches = 0
+ec_seg_rounds_lm.launches = 0
 ec_horner_lm.launches = 0
 ec_add_lm.launches = 0
 ec_add_select_lm.launches = 0

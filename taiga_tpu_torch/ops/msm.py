@@ -17,8 +17,9 @@ SINGLE bucket accumulation over W*N lanes:
   * digits of all columns are keyed col*2^c + digit and sorted (a total
     order: key and lane index packed into one int64);
   * the table rows are gathered in sorted order and reduced per run by
-    segmented Hillis-Steele rounds of K3 (ec_add_proj_sel, `_seg_rounds`),
-    or — for large windows — by a blocked tree of K2 (ec_add_proj,
+    segmented Hillis-Steele rounds of K3 (`ec_seg_rounds_lm`, one launch a
+    round, the select computed in the kernel from the keys), or — for
+    large windows — by a blocked tree of K2 (ec_add_proj,
     `_blocked_partials`) plus a fix-up of the blocks that straddle runs;
   * the 2^c bucket sums of each column are weighted by their digit through
     the digit's bit decomposition (K2 tree + a Horner over the bits).
@@ -104,25 +105,6 @@ def _add(p, q, field: str):
     return tuple(o.view(shape) for o in out)
 
 
-def _seg_rounds(x, y, z, d, n: int, rounds: int, field: str):
-    """Segmented Hillis-Steele suffix reduction along the last axis of
-    points (16, ..., n) with keys (..., n): after round r, lane i holds the
-    sum of its run's elements in [i, i + 2^(r+1)). One K3 launch a round,
-    over every row at once."""
-    idx = torch.arange(n, device=x.device)
-    shape = x.shape
-    for r in range(rounds):
-        s = 1 << r
-        nx = torch.roll(x, -s, dims=-1)
-        ny = torch.roll(y, -s, dims=-1)
-        nz = torch.roll(z, -s, dims=-1)
-        same = ((idx + s < n) & (d == torch.roll(d, -s, dims=-1))).to(L.DTYPE)
-        out = FK.ec_add_proj_sel_lm(*(_lanes(v) for v in (x, y, z, nx, ny, nz)),
-                                    same.reshape(1, -1), field)
-        x, y, z = (o.view(shape) for o in out)
-    return x, y, z
-
-
 def _cols(v, lo: int, hi: int):
     return v[:, lo:hi].contiguous()
 
@@ -136,8 +118,9 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
       A. tree-reduce every block unconditionally (K2 on halving widths —
          boundary blocks produce garbage, fixed next);
       B. gather only the MIXED blocks (<= ncols*nbuckets of them, a static
-         bound from sortedness) and Hillis-Steele within them (K3) —
-         per-(block, run) partials at the in-block run starts;
+         bound from sortedness) and Hillis-Steele within them (K3, every
+         round of a block in one tile launch) — per-(block, run) partials
+         at the in-block run starts;
       C. merge the uniform block sums with the mixed-run partials, re-sort,
          and finish with one small segmented pass.
     Returns (x, y, z, keys, length) sorted by key with each run's first
@@ -177,7 +160,9 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
     # runs must not merge across gathered blocks: composite block-local key
     blk = torch.arange(maxb, dtype=dcomp.dtype, device=dev).repeat_interleave(_BLOCK)
     comp2 = blk * (ncols * nbuckets + 1) + gkey
-    gx, gy, gz = _seg_rounds(gx, gy, gz, comp2, glanes, _BLOCK.bit_length() - 1, field)
+    # every run of the gathered blocks lies in one block: all rounds in one launch
+    gx, gy, gz = FK.ec_seg_rounds_lm(gx, gy, gz, comp2, _BLOCK.bit_length() - 1, field,
+                                     tile=_BLOCK)
     gi = torch.arange(glanes, device=dev)
     prev = torch.cat([comp2[:1] ^ 1, comp2[:-1]])
     is_start = ((gi % _BLOCK == 0) | (comp2 != prev)) & lane_valid
@@ -203,7 +188,7 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
     ex = torch.cat([ux, mx], dim=1).index_select(1, order)
     ey = torch.cat([uy, my], dim=1).index_select(1, order)
     ez = torch.cat([uz, mz], dim=1).index_select(1, order)
-    ex, ey, ez = _seg_rounds(ex, ey, ez, ekeys, en, max(1, (en - 1).bit_length()), field)
+    ex, ey, ez = FK.ec_seg_rounds_lm(ex, ey, ez, ekeys, max(1, (en - 1).bit_length()), field)
     return ex, ey, ez, ekeys, en
 
 
@@ -213,7 +198,7 @@ def _compact(x, y, z, d, total: int, size: int, sentinel: int, field: str):
     rounds), gather those to `size` lanes (sentinel keys and identities
     beyond them) and finish the runs there. Returns (x, y, z, keys)."""
     dev = x.device
-    x, y, z = _seg_rounds(x, y, z, d, total, _CHUNK.bit_length() - 1, field)
+    x, y, z = FK.ec_seg_rounds_lm(x, y, z, d, _CHUNK.bit_length() - 1, field)
     idx = torch.arange(total, device=dev)
     first = torch.ones(tuple(d.shape[:-1]) + (1,), dtype=torch.bool, device=dev)
     is_start = torch.cat([first, d[..., 1:] != d[..., :-1]], dim=-1)
@@ -225,7 +210,7 @@ def _compact(x, y, z, d, total: int, size: int, sentinel: int, field: str):
     posc = torch.clamp(pos, 0, total - 1)
     cd = torch.where(valid, _take(d, posc), sentinel)
     x, y, z = _mask_identity(_take(x, posc), _take(y, posc), _take(z, posc), valid, field)
-    x, y, z = _seg_rounds(x, y, z, cd, size, size.bit_length() - 1, field)
+    x, y, z = FK.ec_seg_rounds_lm(x, y, z, cd, size.bit_length() - 1, field)
     return x, y, z, cd
 
 
@@ -321,7 +306,7 @@ def _window_reduce(pts_lm, d, field: str, c: int, n: int):
     x, y, z = _mask_identity(*pts_lm, d != 0, field)
     if n <= 2 * _COMPACT:
         logn = max(1, n.bit_length() - 1)
-        x, y, z = _seg_rounds(x, y, z, d, n, logn, field)
+        x, y, z = FK.ec_seg_rounds_lm(x, y, z, d, logn, field)
         size = n
     else:
         x, y, z, d = _compact(x, y, z, d, n, _COMPACT, 1 << c, field)

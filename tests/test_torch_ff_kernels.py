@@ -365,3 +365,25 @@ def test_ec_horner_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError):
         TFK.ec_horner_lm(t, t, t, -1)
     assert TFK.ec_horner_lm.launches == 0  # a CPU call never counts as a launch
+
+
+def test_ec_seg_rounds_wrapper_rejects_bad_inputs():
+    p = torch.zeros((16, 2, 256), dtype=torch.int32)
+    keys = torch.zeros((2, 256), dtype=torch.int64)
+    TFK.ec_seg_rounds_lm(p, p, p, keys, 7, tile=128)  # rows of 256 lanes, tiles of 128
+    with pytest.raises(ValueError):  # int32 keys
+        TFK.ec_seg_rounds_lm(p, p, p, keys.int(), 1)
+    with pytest.raises(ValueError):  # keys of another shape
+        TFK.ec_seg_rounds_lm(p, p, p, keys[:1], 1)
+    with pytest.raises(ValueError):  # limbs not on the first axis
+        q = torch.zeros((8, 2, 256), dtype=torch.int32)
+        TFK.ec_seg_rounds_lm(q, q, q, keys, 1)
+    with pytest.raises(ValueError):
+        TFK.ec_seg_rounds_lm(p, p, p, keys, -1)
+    for tile, rounds in ((96, 1), (256, 1), (128, 8), (-128, 1)):
+        with pytest.raises(ValueError, match="tile"):  # not a power of two <= 128; 2^8 > 128
+            TFK.ec_seg_rounds_lm(p, p, p, keys, rounds, tile=tile)
+    with pytest.raises(ValueError, match="tile"):  # rows of 192 lanes: not a multiple of 128
+        r = torch.zeros((16, 192), dtype=torch.int32)
+        TFK.ec_seg_rounds_lm(r, r, r, torch.zeros(192, dtype=torch.int64), 1, tile=128)
+    assert TFK.ec_seg_rounds_lm.launches == 0  # a CPU call never counts as a launch

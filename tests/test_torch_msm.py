@@ -17,6 +17,7 @@ compile takes minutes and many GB here) in the `slow` tier."""
 
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,7 +30,7 @@ from taiga_tpu.plonk.msm_claim import srs_host_rows as j_srs_rows
 from taiga_tpu_torch.crypto.curves import PallasPoint, VestaPoint
 from taiga_tpu_torch.plonk.ipa import _pad_pts_lm
 from taiga_tpu_torch.native import FIELD_FQ, hostops as TH
-from taiga_tpu_torch.ops import ec, limbs as TL, msm as TM
+from taiga_tpu_torch.ops import ec, ff_kernels as TFK, limbs as TL, msm as TM
 from taiga_tpu_torch.plonk.msm_claim import srs_host_rows
 from taiga_tpu_torch.plonk.srs import get_params, srs_device
 
@@ -118,6 +119,62 @@ def test_point_codecs_round_trip():
     xyz = ec.points_to_device(pts)
     back = ec.points_from_device(tuple(torch.as_tensor(v) for v in xyz), VestaPoint)
     assert back == pts
+
+
+# --- the segmented rounds (K3 chained) ---------------------------------------
+
+SEG_N, SEG_TILE, SEG_ROUNDS = 512, 128, 7
+
+
+def _seg_inputs(field, seed):
+    """Points (16, 512) x 3 (random elements, identities (0 : 1 : 0) at
+    lanes 0-2 and 300-301) and keys: in lanes 0-255, runs that keep to their
+    128-lane tile (block-local keys as _blocked_partials makes them, with
+    single-lane runs at lanes 0, 127 and 128); in lanes 256-511, sorted runs
+    that cross the tile edge at lane 384, with single-lane runs among them."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 1 << 16, size=(3, 16, SEG_N), dtype=np.int64)
+    pts[:, 15] &= 0x3FFF
+    for lane in (0, 1, 2, 300, 301):
+        pts[:, :, lane] = 0
+        pts[1, :, lane] = TL.FIELDS[field].one_mont
+    keys = np.zeros(SEG_N, np.int64)
+    for blk in range(2):
+        local = np.sort(rng.integers(1, 6, SEG_TILE))
+        local[0], local[-1] = 0, 9
+        keys[blk * SEG_TILE:(blk + 1) * SEG_TILE] = blk * 16 + local
+    cuts = np.sort(rng.choice(np.arange(257, SEG_N), 12, replace=False))
+    cuts = np.union1d(cuts, [300, 301, 302, 380])  # single-lane runs; a run over lane 384
+    tail = np.zeros(SEG_N - 256, np.int64)
+    for c in cuts:
+        tail[c - 256:] += 1
+    keys[256:] = 100 + tail
+    return pts, keys
+
+
+@pytest.mark.parametrize("field", ["fq", "fp"])
+def test_seg_rounds_plain_match_reference(field):
+    """ec_seg_rounds_plain against the JAX package's _seg_rounds (its
+    non-Pallas path, eagerly): one launch a round everywhere; the tile form
+    where no run crosses a tile (lanes 0-255), where the two forms agree."""
+    pts, keys = _seg_inputs(field, 70 if field == "fq" else 71)
+    with jax.disable_jit():
+        want = JM._seg_rounds(*(jnp.asarray(v.astype(np.uint32)) for v in pts),
+                              jnp.asarray(keys.astype(np.int32)), SEG_N, SEG_ROUNDS, field)
+    want = [np.asarray(w).astype(np.int64) for w in want]
+    t = [torch.as_tensor(v.astype(np.int32)) for v in pts]
+    kt = torch.as_tensor(keys)
+    rounds = TFK.ec_seg_rounds_plain(*t, kt, SEG_ROUNDS, field)
+    tiled = TFK.ec_seg_rounds_plain(*t, kt, SEG_ROUNDS, field, tile=SEG_TILE)
+    for r, tl, w in zip(rounds, tiled, want):
+        np.testing.assert_array_equal(r.numpy(), w)
+        np.testing.assert_array_equal(tl.numpy()[:, :256], w[:, :256])
+    # the crossing run at lane 384 is cut by the tile edge in the tile form
+    assert not np.array_equal(tiled[0].numpy()[:, 256:], want[0][:, 256:])
+    # single-lane runs and lanes past their run's end keep their point
+    for lane in (0, 127, 128, 300, 301):
+        for r, p in zip(rounds, t):
+            np.testing.assert_array_equal(r[:, lane].numpy(), p[:, lane].numpy())
 
 
 # --- the general Pippenger -------------------------------------------------
