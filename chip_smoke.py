@@ -49,8 +49,29 @@ exit code and no result line:
      gives each kernel's device time per proof, the device's busy time and
      its number of device operations;
   6. print per-stage wall times of both warm proofs beside the card's name
-     and power limit, one JSON line of per-kernel numbers, and last
-     {"ok": true, "device": {...}}.
+     and power limit, one JSON line of per-kernel numbers (with each
+     kernel's launches in a warm lockstep batch), and last
+     {"ok": true, "device": {...}};
+  7. (run between 5 and 6) the throughput paths: a lockstep batch of
+     B = 8 compliance proofs at k = 13 (create_proofs_batch through
+     prove_compliance_batch), cold and warm with stage times, the two
+     byte-equal, all verified through the BatchVerifier, and a batch of one
+     of phase 5's statement equal to phase 5's native-IPA proof; then the
+     cross-batch pipeline (create_proofs_pipelined, chunks of 8, each
+     chunk's multiopen and IPA tails on a side stream and a worker thread)
+     over 16 compliance statements, whose first 8 proofs equal the warm
+     batch, and over those 16 followed by 4 trivial resource-logic circuits
+     at k = 12 (a second proving key), whose compliance proofs equal the
+     first run's and all of whose proofs verify; then
+     prove_resource_logics_batch on 2 trivial circuits, whose verifying
+     infos verify. Launch counts are zeroed before each batch and pipeline
+     and read after; proofs per second of both paths are printed beside the
+     warm single proof's time and the card's name and power limit. Last,
+     the batch shapes' plain-version twin: a lockstep batch of 2 compliance
+     proofs and prove_resource_logics_batch on the 2 trivial circuits, each
+     equal byte for byte to the same call through the plain versions on the
+     card under the same seeds (K1 is also held and timed at a batch of 8's
+     width, 8 x 8n = 524,288 lanes, in phase 4).
 
 Usage: python3 chip_smoke.py [--seed 7]
 Needs one CUDA device and the CUDA toolkit (nvcc); imports nothing of JAX.
@@ -72,6 +93,8 @@ K = 13              # the compliance proof's domain 2^K (core/constants.py)
 N = 1 << K          # lanes of the edge-case checks of K1-K3: the SRS size
 # Each kernel is timed at the width of its widest launch in a warm proof:
 W_MONT_MUL = 8 * N            # the quotient's division by Z_H over the 8n coset
+BATCH = 8                     # a lockstep batch, and a chunk of the pipeline (bench.py's B)
+W_MONT_MUL_BATCH = BATCH * W_MONT_MUL  # the same division over a batch's B cosets
 W_EC_ADD = 8 * 32 * N // 2    # msm._blocked_partials: first tree level, 8 columns x 32 windows
 W_EC_ADD_SEL = 8 * 256 * 128  # msm._blocked_partials: 8 x 256 mixed blocks of 128 lanes
 SEL_CASES = ("half", "zero", "one", "1in32")  # K3's selections: K3 is timed at each
@@ -161,17 +184,26 @@ def device_trace(fn):
     return per, busy, ops
 
 
+TRACES: dict[str, int] = {}
+
+
 def kernel_ms(name: str, fn, reps: int, per_call: int = 1) -> float:
     """Device time per launch of kernel `name`, over `reps` calls of fn
     (each launching it `per_call` times), from the profiler: the wrapper's
-    host work between launches is not counted. The trace may miss a launch
-    now and then, so the mean is over the launches it saw, at least half."""
+    host work between launches is not counted. The trace may miss launches
+    now and then (once it lost all 150 of a window), so the mean is over the
+    launches it saw, at least half; a trace that saw fewer is taken again,
+    up to three traces. TRACES[name] keeps the most traces any timing of
+    the kernel needed (the kernels line reports it)."""
     fn()
-    per, _, _ = device_trace(lambda: [fn() for _ in range(reps)])
-    seen = per[name]
-    if 2 * len(seen) < reps * per_call:
-        raise AssertionError(f"{name}: the profiler saw {len(seen)} of {reps * per_call} launches")
-    return sum(seen) / len(seen)
+    for n in range(1, 4):
+        per, _, _ = device_trace(lambda: [fn() for _ in range(reps)])
+        seen = per[name]
+        if 2 * len(seen) >= reps * per_call:
+            TRACES[name] = max(TRACES.get(name, 0), n)
+            return sum(seen) / len(seen)
+        log(f"  {name}: the profiler saw {len(seen)} of {reps * per_call} launches; tracing again")
+    raise AssertionError(f"{name}: three traces each saw under half of {reps * per_call} launches")
 
 
 def seeded_randbits(seed: int):
@@ -407,17 +439,22 @@ def phase_kernels(pk, seed: int, dev):
         with FK.plain_versions():
             want = FK.mont_mul_lm(a, b, field)
         errs.append(compare(f"mont_mul[{field}]", (got,), (want,)))
-    B = W_MONT_MUL
-    a, b = wide_fe(gen, B, dev), wide_fe(gen, B, dev)
-    got = FK.mont_mul_lm(a, b, "fp")
-    with FK.plain_versions():
-        errs.append(compare("mont_mul[fp, wide]", (got,), (FK.mont_mul_lm(a, b, "fp"),)))
-        pms = cuda_ms(lambda: FK.mont_mul_lm(a, b, "fp"), 3)
-    ms = kernel_ms("mont_mul", lambda: FK.mont_mul_lm(a, b, "fp"), 200)
-    res["mont_mul"] = dict(err=max(errs), ms=ms, plain_ms=pms, B=B,
-                           bound=bound_ms(3 * fe * B, MM_IMADS * B))
-    log(f"K1 mont_mul        equal on fp and fq at B={N} and on fp at B={B}; "
-        f"at B={B}: {ms:.6f} ms per launch (plain {pms:.3f} ms)")
+    # a proof's launch (the row's numbers) and a lockstep batch's (its batch_ keys)
+    k1 = {}
+    for B in (W_MONT_MUL, W_MONT_MUL_BATCH):
+        a, b = wide_fe(gen, B, dev), wide_fe(gen, B, dev)
+        got = FK.mont_mul_lm(a, b, "fp")
+        with FK.plain_versions():
+            errs.append(compare(f"mont_mul[fp, B={B}]", (got,), (FK.mont_mul_lm(a, b, "fp"),)))
+            pms = cuda_ms(lambda: FK.mont_mul_lm(a, b, "fp"), 3)
+        ms = kernel_ms("mont_mul", lambda: FK.mont_mul_lm(a, b, "fp"), 200)
+        k1[B] = dict(ms=ms, plain_ms=pms, bound=bound_ms(3 * fe * B, MM_IMADS * B))
+        log(f"K1 mont_mul        at B={B}: equal; {ms:.6f} ms per launch (plain {pms:.3f} ms, "
+            f"bound {k1[B]['bound'][0]:.6f} ms by {k1[B]['bound'][1]})")
+    res["mont_mul"] = dict(err=max(errs), B=W_MONT_MUL, batch=k1[W_MONT_MUL_BATCH],
+                           **k1[W_MONT_MUL])
+    log(f"K1 mont_mul        equal on fp and fq at B={N}, and on fp at a proof's "
+        f"B={W_MONT_MUL} and a batch's B={W_MONT_MUL_BATCH}")
 
     # K2 / K3: edge cases on both fields, then the MSM's widest launches (Fq)
     errs2, errs3 = [], []
@@ -849,23 +886,24 @@ def phase_horner(rng, dev):
 
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
-    # path launches it ("native": the native IPA open, "device": ipa="device")
+    # path launches it ("native": the native IPA open, "device": ipa="device",
+    # "batch": a lockstep batch or the pipeline, which open natively)
     ("mont_mul", "mont_mul_lm", "taiga_tpu_torch/csrc/mont_mul.cu",
-     "taiga_tpu/ops/ff_kernels.py:428", ("native", "device")),
+     "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch")),
     ("ec_add_proj", "ec_add_proj_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device")),
+     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device", "batch")),
     # K3's rounds on both paths go through ec_seg_rounds, its chained form
     ("ec_add_proj_sel", "ec_add_proj_sel_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
      "taiga_tpu/ops/ff_kernels.py:511", ()),
     # K3 chained: the segmented rounds over K3 of the MSMs' bucket passes
     ("ec_seg_rounds", "ec_seg_rounds_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:74-90", ("native", "device")),
+     "taiga_tpu/ops/msm.py:74-90", ("native", "device", "batch")),
     # K2 chained: the scan over K2 that combines an MSM's windows (and its
     # bit Horner, :158-173)
     ("ec_horner", "ec_horner_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:417-424", ("native", "device")),
+     "taiga_tpu/ops/msm.py:417-424", ("native", "device", "batch")),
     ("tape_eval", "tape_eval_lm", "taiga_tpu_torch/csrc/tape_eval.cu",
-     "taiga_tpu/ops/tape_device.py:81", ("native", "device")),
+     "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch")),
     ("ec_fold_shared", "ec_fold_shared_lm", "taiga_tpu_torch/csrc/ec_fold_shared.cu",
      "taiga_tpu/ops/ff_kernels.py:623", ("device",)),
     ("ec_add", "ec_add_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
@@ -888,7 +926,7 @@ def zero_counts():
 
 def read_counts(what: str, path: str) -> dict:
     """The launch counts since zero_counts(); fails if a kernel of the path
-    ("native" or "device" IPA) was never launched."""
+    ("native" or "device" IPA, "batch") was never launched."""
     counts = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
     for name, _, _, _, paths in KERNELS:
         if path in paths and counts[name] == 0:
@@ -1036,7 +1074,162 @@ def phase_prove(pk, seed: int):
         raise AssertionError("the proof made with the kernels differs from the plain-version proof")
     log(f"plain-version proof on the card ({t_plain:.2f} s, cold) equals the kernel proof byte for byte")
     launches["ec_fold_shared"] = launches_d["ec_fold_shared"]  # the path that runs it
-    return launches, (timer.stages, t_warm), (timer_d.stages, t_dev)
+    return launches, (timer.stages, t_warm), (timer_d.stages, t_dev), proof
+
+
+PIPE_PROOFS = 16   # compliance statements through the pipeline: two chunks
+RL_PIPE = 4        # trivial resource-logic circuits after them (a second key)
+RL_BATCH = 2       # trivial circuits through prove_resource_logics_batch
+TWIN = 2           # compliance statements of the batch's plain-version twin
+
+
+def trivial_circuits(rng, count: int):
+    """Trivial resource-logic circuits on random statements (the resource's
+    nullifier in a resource tree of four leaves, as tools/prover_diff.py
+    builds its "trivial" statement)."""
+    from taiga_tpu_torch.apps.trivial import TrivialResourceLogicCircuit
+    from taiga_tpu_torch.core.resource import Resource
+    from taiga_tpu_torch.core.resource_tree import (
+        ResourceExistenceWitness, ResourceMerkleTreeLeaves)
+    from taiga_tpu_torch.crypto.fields import Fp
+
+    out = []
+    for _ in range(count):
+        r = Resource.random(rng)
+        ident = r.get_nf().inner()
+        tree = ResourceMerkleTreeLeaves([ident] + [Fp.random(rng) for _ in range(3)])
+        out.append(TrivialResourceLogicCircuit(
+            ResourceExistenceWitness(r, tree.generate_path(ident))))
+    return out
+
+
+def verify_batch(vk, instances, proofs, what: str):
+    from taiga_tpu_torch.plonk.verifier import BatchVerifier
+
+    bv = BatchVerifier()
+    for inst, p in zip(instances, proofs):
+        bv.add(vk, inst, p)
+    if not bv.finalize():
+        raise AssertionError(f"the {what} proofs do not verify")
+
+
+def phase_batch(pk, seed: int, single_proof: bytes):
+    """Phase 7: the lockstep batch and the cross-batch pipeline on the card.
+    Returns the warm batch's launches, its stage times and the throughput
+    numbers."""
+    import torch
+    import taiga_tpu_torch as T
+    from taiga_tpu_torch.apps.trivial import TrivialResourceLogicCircuit
+    from taiga_tpu_torch.core.compliance import ComplianceInfo
+    from taiga_tpu_torch.core.proving import (
+        get_proving_key, prove_resource_logics_batch, resource_logic_k)
+    from taiga_tpu_torch.ops import ff_kernels as FK
+    from taiga_tpu_torch.plonk.prover import StageTimer, create_proofs_pipelined
+    from taiga_tpu_torch.plonk.verifier import verify_proof
+
+    rngs = lambda lo, hi: [random.Random(seed + i) for i in range(lo, hi)]
+
+    def batch(**kw):
+        t0 = time.perf_counter()
+        out = T.prove_compliance_batch(rngs(0, BATCH), K, device="cuda",
+                                       randbits=seeded_randbits(seed + 1), **kw)
+        return out, time.perf_counter() - t0
+
+    # 7a: the lockstep batch, cold (its shapes' first run) and warm
+    zero_counts()
+    (vk, insts, cold), t_cold = batch()
+    read_counts("cold lockstep batch", "batch")
+    timer = StageTimer("cuda")
+    zero_counts()
+    (_, _, warm), t_warm = batch(timer=timer)
+    launches = read_counts("warm lockstep batch", "batch")
+    if warm != cold:
+        raise AssertionError("a second seeded lockstep batch differs from the first")
+    verify_batch(vk, insts, warm, "lockstep batch")
+    _, _, one = T.prove_compliance_batch([random.Random(seed)], K, device="cuda",
+                                         randbits=seeded_randbits(seed + 1))
+    if one[0] != single_proof:
+        raise AssertionError("a lockstep batch of one differs from phase 5's proof")
+    family = launches["ec_add_proj_sel"] + launches["ec_seg_rounds"]
+    log(f"lockstep batch of {BATCH} compliance proofs at k={K}: cold {t_cold:.2f} s, warm "
+        f"{t_warm:.2f} s ({BATCH / t_warm:.4f} proofs/s), byte-equal, verified by the "
+        f"BatchVerifier; a batch of one equals phase 5's proof; launches a warm batch: "
+        f"K1 {launches['mont_mul']}, K2 {launches['ec_add_proj']}, ec_horner "
+        f"{launches['ec_horner']}, K3 family {family}, K4 {launches['tape_eval']}")
+
+    # 7b: the pipeline over one key, then over two keys (a resource logic)
+    built = [ComplianceInfo.random(r).build() for r in rngs(0, PIPE_PROOFS)]
+    circuits = [c for _, c in built]
+    cinsts = [pis.to_instance() for pis, _ in built]
+    zero_counts()
+    t0 = time.perf_counter()
+    (piped,) = create_proofs_pipelined([(pk, circuits, cinsts)], chunk=BATCH, device="cuda",
+                                       randbits=seeded_randbits(seed + 1))
+    t_pipe = time.perf_counter() - t0
+    read_counts("pipelined", "batch")
+    if piped[:BATCH] != warm:
+        raise AssertionError("the pipeline's first chunk differs from the lockstep batch")
+    verify_batch(vk, cinsts, piped, "pipelined compliance")
+    log(f"pipeline of {PIPE_PROOFS} compliance proofs in chunks of {BATCH}: {t_pipe:.2f} s "
+        f"({PIPE_PROOFS / t_pipe:.4f} proofs/s); the first chunk equals the lockstep batch; "
+        "all verify")
+
+    t0 = time.perf_counter()
+    rl_pk = get_proving_key(TrivialResourceLogicCircuit, resource_logic_k())
+    log(f"trivial resource logic keygen k={resource_logic_k()} (host, native engine): "
+        f"{time.perf_counter() - t0:.2f} s")
+    rl = trivial_circuits(random.Random(seed), RL_PIPE + RL_BATCH)
+    rl_insts = [c.get_public_inputs() for c in rl[:RL_PIPE]]
+    jobs = [(pk, circuits, cinsts), (rl_pk, rl[:RL_PIPE], rl_insts)]
+    zero_counts()
+    t0 = time.perf_counter()
+    both = create_proofs_pipelined(jobs, chunk=BATCH, device="cuda",
+                                   randbits=seeded_randbits(seed + 1))
+    t_two = time.perf_counter() - t0
+    read_counts("two-key pipelined", "batch")
+    if both[0] != piped:
+        raise AssertionError("the two-key pipeline's compliance proofs differ from the first run's")
+    for inst, p in zip(rl_insts, both[1]):
+        if not verify_proof(rl_pk.vk, inst, p):
+            raise AssertionError("a pipelined trivial resource-logic proof does not verify")
+    infos = prove_resource_logics_batch(rl[RL_PIPE:], device="cuda",
+                                        randbits=seeded_randbits(seed + 2))
+    for info in infos:
+        info.verify()
+    log(f"pipeline of {PIPE_PROOFS} compliance proofs then {RL_PIPE} trivial resource-logic "
+        f"proofs (k={resource_logic_k()}): {t_two:.2f} s in all; the compliance proofs equal the "
+        f"first run's, the resource-logic proofs verify; prove_resource_logics_batch on "
+        f"{RL_BATCH} trivial circuits: their verifying infos verify")
+
+    # the plain-version twin of the batch shapes: a lockstep batch of TWIN
+    # compliance proofs (K1 over TWIN cosets, the MSMs over TWIN x columns)
+    # and the resource logics' batch at k = 12 (K4 on the trivial tape, the
+    # MSMs at n = 4,096), through the kernels and then through the plain
+    # versions on the same seeds; the k = 12 tables are rebuilt plainly too
+    def twin():
+        _, _, pair = T.prove_compliance_batch(rngs(0, TWIN), K, device="cuda",
+                                              randbits=seeded_randbits(seed + 3))
+        rls = prove_resource_logics_batch(rl[RL_PIPE:], device="cuda",
+                                          randbits=seeded_randbits(seed + 2))
+        return pair + [info.proof.data for info in rls]
+
+    kernel_twin = twin()
+    if kernel_twin[TWIN:] != [info.proof.data for info in infos]:
+        raise AssertionError("prove_resource_logics_batch differs between two seeded runs")
+    rl_pk.__dict__.pop("_pipelines", None)
+    t0 = time.perf_counter()
+    with FK.plain_versions():
+        plain_twin = twin()
+    t_twin = time.perf_counter() - t0
+    if plain_twin != kernel_twin:
+        raise AssertionError("the batches made with the kernels differ from their plain-version "
+                             "twins")
+    log(f"plain-version twins on the card ({t_twin:.2f} s, the k={resource_logic_k()} tables "
+        f"rebuilt): a lockstep batch of {TWIN} compliance proofs and prove_resource_logics_batch "
+        f"on {RL_BATCH} trivial circuits equal the kernel runs byte for byte")
+    torch.cuda.synchronize()
+    return launches, timer.stages, dict(t_cold=t_cold, t_warm=t_warm, t_pipe=t_pipe,
+                                        t_two=t_two)
 
 
 def main(argv=None) -> int:
@@ -1061,23 +1254,38 @@ def main(argv=None) -> int:
     log(f"compliance keygen k={K} (host, native engine): {time.perf_counter() - t0:.2f} s")
     dev = torch.device("cuda")
     res = phase_kernels(pk, args.seed, dev)
-    launches, native, device = phase_prove(pk, args.seed)
+    launches, native, device, proof = phase_prove(pk, args.seed)
+    launches_b, stages_b, tb = phase_batch(pk, args.seed, proof)
 
     for what, (stages, total) in (("native IPA", native), ("device IPA", device)):
         log(f"stage wall times of a warm k={K} proof, {what}, on {smi}:")
         for name, sec in stages:
             log(f"  {name:28s} {sec * 1e3:10.1f} ms")
         log(f"  {'total (prove_compliance)':28s} {total * 1e3:10.1f} ms   [{smi}]")
+    log(f"stage wall times of a warm lockstep batch of {BATCH} k={K} proofs on {smi}:")
+    for name, sec in stages_b:
+        log(f"  {name:32s} {sec * 1e3:10.1f} ms")
+    log(f"  {'total (prove_compliance_batch)':32s} {tb['t_warm'] * 1e3:10.1f} ms   [{smi}]")
+    log(f"throughput at k={K} on {smi}: single warm proof {native[1]:.3f} s "
+        f"({1 / native[1]:.4f} proofs/s); lockstep batch of {BATCH} {BATCH / tb['t_warm']:.4f} "
+        f"proofs/s; pipelined {PIPE_PROOFS} in chunks of {BATCH} "
+        f"{PIPE_PROOFS / tb['t_pipe']:.4f} proofs/s; with {RL_PIPE} trivial resource-logic "
+        f"proofs after them {tb['t_two']:.3f} s in all")
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     rows = []
     for name, attr, src, replaces, _ in KERNELS:
         r = res[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "max_abs_err": r["err"],
+                     "launches": launches[name], "launches_batch": launches_b[name],
+                     "max_abs_err": r["err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                     "library_ms": None})
+                     "library_ms": None, "ms_traces": TRACES.get(name)})
+        if "batch" in r:  # the kernel at the width of its launch in a lockstep batch
+            b = r["batch"]
+            rows[-1].update(batch_ms=b["ms"], batch_plain_ms=b["plain_ms"],
+                            batch_bound_ms=b["bound"][0], batch_bound_by=b["bound"][1])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -44,7 +44,8 @@ _force_plain = False
 def plain_versions():
     """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner)
     runs its plain version, on any device. Used to hold the kernels'
-    results against the plain path."""
+    results against the plain path. The flag is module state: it covers
+    every thread, the pipelined prover's worker included."""
     global _force_plain
     prev, _force_plain = _force_plain, True
     try:

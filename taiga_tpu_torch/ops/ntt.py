@@ -123,6 +123,17 @@ def _coset_powers_dev(k: int, field: str, g: int, inverse: bool, device: str):
     return torch.as_tensor(_coset_powers(k, field, g, inverse), device=torch.device(device))
 
 
+def build_tables(k: int, device, field: str = "fp", g: int = 5):
+    """Build now the device tables of every transform at 2^k on `device`
+    (forward, inverse and both coset directions), which the transforms
+    otherwise build at first use: for a caller that runs them from
+    several threads."""
+    key = str(torch.empty(0, device=device).device)
+    for inverse in (False, True):
+        _tables(k, field, inverse, key)
+        _coset_powers_dev(k, field, g, inverse, key)
+
+
 def coset_ntt(coeffs, k: int, field: str = "fp", g: int = 5):
     """Evaluations over the coset g*H (H = 2^k subgroup)."""
     cpow = _coset_powers_dev(k, field, g, False, str(coeffs.device))

@@ -45,12 +45,14 @@ def mod_cumsum(a, field: str = "fp"):
 
 
 def powers(x_mont, n: int, field: str = "fp"):
-    """[1, x, x^2, ..., x^(n-1)] as (n, 16) Montgomery limbs."""
+    """[1, x, x^2, ..., x^(n-1)] as (..., n, 16) Montgomery limbs for x of
+    shape (..., 16): one scan for every x."""
     spec = _spec(field)
-    tiled = x_mont.reshape(1, L.NLIMBS).expand(n - 1, L.NLIMBS)
-    pows = mont_cumprod(tiled, field)
-    one = L.const(spec.one_mont, x_mont.device).reshape(1, L.NLIMBS)
-    return torch.cat([one, pows], dim=0)
+    lead = tuple(x_mont.shape[:-1])
+    xs = x_mont.reshape(1, -1, L.NLIMBS)
+    pows = mont_cumprod(xs.expand(n - 1, xs.shape[1], L.NLIMBS), field)
+    one = L.const(spec.one_mont, x_mont.device).expand(1, xs.shape[1], L.NLIMBS)
+    return torch.cat([one, pows], dim=0).movedim(0, 1).reshape(lead + (n, L.NLIMBS))
 
 
 def tree_sum(a, axis: int, field: str = "fp"):
@@ -73,31 +75,34 @@ def mont_dot(a, b, field: str = "fp"):
 
 
 def eval_polys_at_points(coeffs, points, field: str = "fp"):
-    """Evaluate C polynomials at Q points: coeffs (C, n, 16), points (Q, 16)
-    Montgomery -> (Q, C, 16) Montgomery values."""
+    """Evaluate C polynomials at Q points: coeffs (..., C, n, 16), points
+    (..., Q, 16) Montgomery -> (..., Q, C, 16) Montgomery values; the
+    leading axes (a batch of proofs) pair each stack with its points."""
     n = coeffs.shape[-2]
-    pw = torch.stack([powers(x, n, field) for x in points])  # (Q, n, 16)
-    prod = L.mont_mul(pw[:, None], coeffs[None], _spec(field))
+    pw = powers(points, n, field)  # (..., Q, n, 16)
+    prod = L.mont_mul(pw.unsqueeze(-3), coeffs.unsqueeze(-4), _spec(field))
     return tree_sum(prod, axis=-2, field=field)
 
 
 def synthetic_div(coeffs, point, point_inv, field: str = "fp"):
-    """q(X) = (A(X) - A(p)) / (X - p) for coeffs (..., n, 16) and a single
-    point (16,) with its inverse: q_i = p^{-(i+1)} * sum_{j>i} a_j p^j."""
+    """q(X) = (A(X) - A(p)) / (X - p) for coeffs (..., n, 16) and a point
+    (16,) with its inverse, or one point (..., 16) per polynomial:
+    q_i = p^{-(i+1)} * sum_{j>i} a_j p^j."""
     spec = _spec(field)
     n = coeffs.shape[-2]
     pw = powers(point, n + 1, field)  # 1..p^n
-    t = L.mont_mul(coeffs, pw[:n], spec)  # a_j p^j
+    t = L.mont_mul(coeffs, pw[..., :n, :], spec)  # a_j p^j
     # suffix sums S_i = sum_{j>i} t_j  (reverse-cumsum exclusive)
     rev = torch.flip(t, dims=[-2])
     cs = mod_cumsum(rev.movedim(-2, 0), field).movedim(0, -2)
     incl = torch.flip(cs, dims=[-2])  # S_i inclusive: sum_{j>=i}
     excl = L.sub(incl, t, spec)  # sum_{j>i}
     ipw = powers(point_inv, n + 1, field)
-    return L.mont_mul(excl, ipw[1 : n + 1], spec)
+    return L.mont_mul(excl, ipw[..., 1 : n + 1, :], spec)
 
 
 def mont_linear_combo(coeffs_stack, weights, field: str = "fp"):
-    """sum_c weights[c] * coeffs_stack[c]: (C, n, 16) x (C, 16) -> (n, 16)."""
-    prod = L.mont_mul(coeffs_stack, weights[:, None], _spec(field))
-    return tree_sum(prod, axis=0, field=field)
+    """sum_c weights[c] * coeffs_stack[c]: (..., C, n, 16) x (..., C, 16)
+    -> (..., n, 16)."""
+    prod = L.mont_mul(coeffs_stack, weights.unsqueeze(-2), _spec(field))
+    return tree_sum(prod, axis=-3, field=field)

@@ -49,6 +49,12 @@ def _rows_msm(rows9: np.ndarray, scalars_plain: np.ndarray):
     return VestaPoint.identity() if inf else VestaPoint.from_xy(x, y)
 
 
+def draws(k: int) -> int:
+    """How many values ipa_open_native draws from its `randbits` at 2^k:
+    the n - 1 coefficients of t(X), s's blind, and two blinds a round."""
+    return (1 << k) - 1 + 1 + 2 * k
+
+
 def ipa_open_native(params: Params, coeffs_mont: np.ndarray, blind: int,
                     x: int, tr: ProofWriter, randbits):
     """Native IPA open of (n, 4) u64 Montgomery coefficients; transcript-

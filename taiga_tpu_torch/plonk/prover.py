@@ -1,7 +1,9 @@
 """Proof creation pipeline (device-resident).
 
-Port of taiga_tpu/plonk/prover.py::_create_proof_device and the parts of its
-ProverPipeline that the single-proof path runs. On every device the port
+Port of taiga_tpu/plonk/prover.py: _create_proof_device, the lockstep batch
+(create_proofs_batch, _batch_phase1/_batch_phase2) and the cross-batch
+pipeline (create_proofs_pipelined), with the ProverPipeline stages they
+run. A single proof is a batch of one. On every device the port
 takes the branches the reference takes on a TPU: commitments through the
 fixed-base SRS MSM (ops/msm.py) and the quotient numerator through the tape
 interpreter (ops/tape_device.py). The stages, in transcript order:
@@ -11,7 +13,7 @@ interpreter (ops/tape_device.py). The stages, in transcript order:
   theta -> compressed lookup columns (tapes over the base domain), device
       sort/merge permutation, commit A'/S'
   beta, gamma -> permutation and lookup grand products (scans + one
-      inversion per chunk), commit
+      inversion for all their columns), commit
   y -> quotient: the compiled constraint tape over the 8n coset, divide by
       Z_H, coset iNTT, split, commit
   x -> evaluations at the query points
@@ -20,7 +22,14 @@ interpreter (ops/tape_device.py). The stages, in transcript order:
 
 Every blind is drawn through the caller's `randbits(300) % p`, in the
 reference's order, so `random.Random(seed).getrandbits` reproduces the
-reference's seeded proof byte for byte.
+reference's seeded proof byte for byte. A batch draws stage by stage, and
+proof by proof within a stage, as the reference's batch does; its phase 2
+values (the multiopen's h blinds, then each native IPA open's draws) are
+drawn on the calling thread before phase 2 starts, so a batch's bytes do
+not depend on thread timing (the reference draws them on its worker
+threads). The pipeline's worker thread runs phase 2 on its own CUDA
+stream; FK.plain_versions() and the kernels' launch counts are module
+state that both threads see.
 
 Per-proving-key device state (fixed/sigma coefficient + extended tables,
 transparent domain tables, the SRS shifted table, compiled tapes) is built
@@ -31,6 +40,7 @@ from __future__ import annotations
 
 import secrets
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 
 import numpy as np
@@ -238,7 +248,7 @@ class ProverPipeline:
     # --- permutation grand products ------------------------------------
     def _grand_products(self, num, den):
         """cps[c][i] = prod_{j<=i} num_c[j] / den_c[j] for (C, n, 16) stacks,
-        with the division done by ONE Fermat inversion per chunk:
+        with the division done by ONE Fermat inversion for all C columns:
         inv(prefix_den[i]) = suffix_den_excl[i] * inv(total_den)."""
         cumprod = lambda a: poly.mont_cumprod(a.movedim(1, 0), "fp").movedim(0, 1)
         num_cp = cumprod(num)
@@ -249,22 +259,29 @@ class ProverPipeline:
         den_cp_inv = L.mont_mul(sfx_excl, inv_total[:, None, :], L.FP)
         return L.mont_mul(num_cp, den_cp_inv, L.FP)
 
-    def z_values(self, cols_v, beta: int, gamma: int, rand: _Rand):
-        """Grand-product columns as (n_chunks, n, 16) Montgomery values —
-        cumprods, cross-chunk chaining, and blinding-row fill on device."""
+    def _mont_per_proof(self, vals: list[int]):
+        """One Montgomery scalar per proof, (B, 1, 16): broadcasts over a
+        proof's (n, 16) column."""
+        return self._t(np.stack([L.int_to_limbs(v * L.FP.r % P) for v in vals]))[:, None, :]
+
+    def z_values_batch(self, cols_vb, betas: list[int], gammas: list[int], rand: _Rand):
+        """Grand-product columns of B proofs, (B, chunks, n, 16) Montgomery,
+        from their (B, P, n, 16) permutation columns: the cumprods of all
+        B * chunks columns share ONE inversion, then the cross-chunk
+        chaining and the blinding rows, drawn for every proof in turn."""
         st = self.static_tables()
         n, u = self.n, self.u
-        beta_m = _mont_scalar(beta, self.device)
-        gamma_m = _mont_scalar(gamma, self.device)
-        # blinding rows u+1..n-1 are random; tiny, generated host-side
-        rand_rows = self._t(np.stack([rand.mont_rows(n - u - 1) for _ in self.chunks]))
+        B, nc = cols_vb.shape[0], len(self.chunks)
+        rand_rows = self._t(np.stack([rand.mont_rows(n - u - 1) for _ in range(B * nc)]))
+        beta_m = self._mont_per_proof(betas)
+        gamma_m = self._mont_per_proof(gammas)
         perm_index = {c: j for j, c in enumerate(self.pk.vk.perm_cols)}
         nums, dens = [], []
         for c, chunk in enumerate(self.chunks):
             num = den = None
             for j_local, col in enumerate(chunk):
                 jg = c * PERM_CHUNK + j_local
-                v = cols_v[perm_index[col]]
+                v = cols_vb[:, perm_index[col]]  # (B, n, 16)
                 bd = L.mont_mul(beta_m, _mont_scalar(pow(DELTA, jg, P), self.device), L.FP)
                 t_num = L.add(L.add(v, L.mont_mul(bd, st["omega_pows"], L.FP), L.FP),
                               gamma_m, L.FP)
@@ -274,76 +291,122 @@ class ProverPipeline:
                 den = t_den if den is None else L.mont_mul(den, t_den, L.FP)
             nums.append(num)
             dens.append(den)
-        cps = self._grand_products(torch.stack(nums), torch.stack(dens))
+        flat = lambda cols: torch.stack(cols, dim=1).reshape(B * nc, n, L.NLIMBS)
+        cps = self._grand_products(flat(nums), flat(dens)).reshape(B, nc, n, L.NLIMBS)
         # chain: running_c = prod_{c'<c} cp_{c'}[u-1]; z_c[0] = running_c,
         # z_c[i+1] = running_c * cp_c[i] for i < u, blinding rows random
-        one = self._t(L.FP.one_mont)[None]
-        finals = cps[:, u - 1]  # (C, 16)
-        running = torch.cat([one, poly.mont_cumprod(finals, "fp")[:-1]], dim=0)
-        z_main = L.mont_mul(running[:, None, :], cps, L.FP)
-        return torch.cat([running[:, None, :], z_main[:, :u], rand_rows], dim=1)
+        one = self._t(L.FP.one_mont).expand(B, 1, L.NLIMBS)
+        finals = cps[:, :, u - 1]  # (B, C, 16)
+        prefix = poly.mont_cumprod(finals.movedim(1, 0), "fp").movedim(0, 1)
+        running = torch.cat([one, prefix[:, :-1]], dim=1)
+        z_main = L.mont_mul(running[:, :, None, :], cps, L.FP)
+        return torch.cat([running[:, :, None, :], z_main[:, :, :u],
+                          rand_rows.reshape(B, nc, n - u - 1, L.NLIMBS)], dim=2)
 
     # --- lookup argument --------------------------------------------------
-    def lookup_as_values(self, advice_v, inst_v, theta: int):
-        """Compressed input/table value columns for every lookup over the
-        base domain, A = ((a_0*theta + a_1)*theta + ...), evaluated by the
-        tape interpreter with theta as the Horner variable: returns (A, S)
-        each (L, n, 16) Montgomery."""
-        st = self.static_tables()
+    def lookup_tapes(self):
+        """Each lookup's (input, table) expressions compiled into a tape over
+        the base domain, theta-compressed."""
         if self._lookup_tapes is None:
             self._lookup_tapes = [
                 tuple(compile_tape([pair[side] for pair in lk.pairs], 1, y_name="theta")
                       for side in (0, 1))
                 for lk in self.pk.vk.cs.lookups
             ]
-        ks = {FIXED: st["fixed_v"], ADVICE: advice_v, INSTANCE: inst_v}
-        ch = {"theta": theta}
-        a_rows, s_rows = [], []
-        for a_tape, s_tape in self._lookup_tapes:
-            a_rows.append(TD.tape_eval_device(a_tape, ks, a_tape.scalar_values(ch), self.n))
-            s_rows.append(TD.tape_eval_device(s_tape, ks, s_tape.scalar_values(ch), self.n))
-        return torch.stack(a_rows), torch.stack(s_rows)
+        return self._lookup_tapes
 
-    def lookup_z_values(self, a_v, s_v, ap_v, sp_v, beta: int, gamma: int, rand: _Rand):
-        """Lookup grand products: Z[0]=1, Z[i+1]=Z[i]*(A+beta)(S+gamma) /
-        ((A'+beta)(S'+gamma)) over usable rows; blinding rows random.
-        All inputs (L, n, 16) Montgomery."""
+    def lookup_as_values_batch(self, advice_vb, inst_vb, thetas: list[int]):
+        """Compressed input/table value columns for every lookup of B proofs
+        over the base domain, A = ((a_0*theta + a_1)*theta + ...), each
+        evaluated by the tape interpreter on its own proof's columns (a
+        LOAD's rotation wraps within a proof): returns (A, S), each
+        (B, L, n, 16) Montgomery."""
+        st = self.static_tables()
+        a_rows, s_rows = [], []
+        for advice_v, inst_v, theta in zip(advice_vb, inst_vb, thetas):
+            ks = {FIXED: st["fixed_v"], ADVICE: advice_v, INSTANCE: inst_v}
+            ch = {"theta": theta}
+            for a_tape, s_tape in self.lookup_tapes():
+                a_rows.append(TD.tape_eval_device(a_tape, ks, a_tape.scalar_values(ch), self.n))
+                s_rows.append(TD.tape_eval_device(s_tape, ks, s_tape.scalar_values(ch), self.n))
+        shape = (len(thetas), len(self.lookup_tapes()), self.n, L.NLIMBS)
+        return torch.stack(a_rows).reshape(shape), torch.stack(s_rows).reshape(shape)
+
+    def lookup_z_values_batch(self, a_vb, s_vb, ap_vb, sp_vb, betas: list[int],
+                              gammas: list[int], rand: _Rand):
+        """Lookup grand products of B proofs: Z[0]=1, Z[i+1]=Z[i]*(A+beta)
+        (S+gamma) / ((A'+beta)(S'+gamma)) over usable rows, ONE inversion
+        for all B * L columns; blinding rows random, drawn for every proof
+        in turn. All inputs (B, L, n, 16) Montgomery."""
         n, u = self.n, self.u
-        rand_rows = self._t(np.stack([rand.mont_rows(n - u - 1) for _ in range(a_v.shape[0])]))
-        beta_m = _mont_scalar(beta, self.device)
-        gamma_m = _mont_scalar(gamma, self.device)
-        num = L.mont_mul(L.add(a_v, beta_m, L.FP), L.add(s_v, gamma_m, L.FP), L.FP)
-        den = L.mont_mul(L.add(ap_v, beta_m, L.FP), L.add(sp_v, gamma_m, L.FP), L.FP)
-        cps = self._grand_products(num, den)
-        ones = self._t(L.FP.one_mont).expand(cps.shape[0], 1, L.NLIMBS)
-        return torch.cat([ones, cps[:, :u], rand_rows], dim=1)
+        B, nlk = a_vb.shape[:2]
+        rand_rows = self._t(np.stack([rand.mont_rows(n - u - 1) for _ in range(B * nlk)]))
+        beta_m = self._mont_per_proof(betas)[:, None]
+        gamma_m = self._mont_per_proof(gammas)[:, None]
+        num = L.mont_mul(L.add(a_vb, beta_m, L.FP), L.add(s_vb, gamma_m, L.FP), L.FP)
+        den = L.mont_mul(L.add(ap_vb, beta_m, L.FP), L.add(sp_vb, gamma_m, L.FP), L.FP)
+        flat = lambda a: a.reshape(B * nlk, n, L.NLIMBS)
+        cps = self._grand_products(flat(num), flat(den))
+        ones = self._t(L.FP.one_mont).expand(B * nlk, 1, L.NLIMBS)
+        z = torch.cat([ones, cps[:, :u], rand_rows], dim=1)
+        return z.reshape(B, nlk, n, L.NLIMBS)
 
     # --- quotient -------------------------------------------------------
-    def quotient_coeffs(self, advice_e, inst_e, z_e, beta: int, gamma: int, y: int,
-                        theta: int = 0, lk_a_e=None, lk_s_e=None, lk_z_e=None):
-        """Quotient numerator via the tape interpreter over the extended
-        coset (ONE kernel launch for the whole constraint system), divided
-        by Z_H and brought back to coefficients."""
-        st = self.static_tables()
+    def quotient_tape(self):
+        """The whole constraint system compiled into one tape over the
+        extended coset."""
         if self._tape is None:
             self._tape = compile_tape(self.exprs, EXT_FACTOR)
-        ne = self.n * EXT_FACTOR
+        return self._tape
+
+    def quotient_coeffs_batch(self, advice_eb, inst_eb, z_eb, betas, gammas, ys, thetas,
+                              lk_a_eb=None, lk_s_eb=None, lk_z_eb=None):
+        """Quotient numerators of B proofs by the tape interpreter over the
+        extended coset, ONE K4 launch a proof (each proof has its own
+        challenges), then ONE K1 product dividing all B by Z_H and one coset
+        iNTT over the (B, 8n, 16) stack. Returns (B, 8n, 16) coefficients."""
+        st = self.static_tables()
+        tape = self.quotient_tape()
+        B, ne = advice_eb.shape[0], self.n * EXT_FACTOR
         if not self.pk.vk.cs.lookups:
-            empty = torch.zeros((0, ne, L.NLIMBS), dtype=L.DTYPE, device=self.device)
-            lk_a_e = lk_s_e = lk_z_e = empty
-        ks = {
-            FIXED: st["fixed_e"], SIGMA: st["sigma_e"], ADVICE: advice_e,
-            INSTANCE: inst_e, Z: z_e,
-            LOOKUP_A: lk_a_e, LOOKUP_S: lk_s_e, LOOKUP_Z: lk_z_e,
-            XID: st["xid"][None], L0: st["l0"][None],
-            LLAST: st["llast"][None], LBLIND: st["lblind"][None],
-        }
-        svals = self._tape.scalar_values(
-            {"beta": beta, "gamma": gamma, "theta": theta, "y": y})
-        acc = TD.tape_eval_device(self._tape, ks, svals, ne)  # (ne, 16)
-        # divide by Z_H: one K1 product over the limb-major coset
-        num = FK.mont_mul_lm(acc.T.contiguous(), st["zh_inv_lm"], "fp")
-        return ntt.coset_intt(num.T, self.k + 3, "fp")
+            lk_a_eb = lk_s_eb = lk_z_eb = torch.zeros(
+                (B, 0, ne, L.NLIMBS), dtype=L.DTYPE, device=self.device)
+        accs = []
+        for b in range(B):
+            ks = {
+                FIXED: st["fixed_e"], SIGMA: st["sigma_e"], ADVICE: advice_eb[b],
+                INSTANCE: inst_eb[b], Z: z_eb[b],
+                LOOKUP_A: lk_a_eb[b], LOOKUP_S: lk_s_eb[b], LOOKUP_Z: lk_z_eb[b],
+                XID: st["xid"][None], L0: st["l0"][None],
+                LLAST: st["llast"][None], LBLIND: st["lblind"][None],
+            }
+            svals = tape.scalar_values(
+                {"beta": betas[b], "gamma": gammas[b], "theta": thetas[b], "y": ys[b]})
+            accs.append(TD.tape_eval_device(tape, ks, svals, ne))  # (ne, 16)
+        acc_lm = torch.stack(accs).reshape(B * ne, L.NLIMBS).T.contiguous()
+        # divide by Z_H: one K1 product over the limb-major cosets of all B
+        num = FK.mont_mul_lm(acc_lm, st["zh_inv_lm"].repeat(1, B), "fp")
+        return ntt.coset_intt(num.T.reshape(B, ne, L.NLIMBS), self.k + 3, "fp")
+
+    def prepare(self):
+        """Build now what the pipeline otherwise builds at first use: the
+        static and domain tables, the SRS table and its host rows, the
+        compiled tapes and the transforms' tables at k and k + 3. A
+        pipelined prover calls this before its loop, so that the worker
+        thread running a batch's multiopen and IPA tails (the h commit, the
+        native opens) only reads this state. The tapes' device schedules
+        (ops/tape_device.py::device_code) are made at their first
+        evaluation; only the main thread evaluates tapes."""
+        from .msm_claim import srs_host_rows
+
+        self.static_tables()
+        self.srs_table()
+        self.quotient_tape()
+        self.lookup_tapes()
+        for k in (self.k, self.k + 3):
+            ntt.build_tables(k, self.device)
+        get_params(self.k)
+        srs_host_rows(self.k)
 
 
 def get_pipeline(pk: ProvingKey, device) -> ProverPipeline:
@@ -363,197 +426,336 @@ def create_proof(pk: ProvingKey, circuit, instance: list[Fp], *, device="cuda",
     asks for "cpu"). Every blind comes from `randbits`; `timer` (a
     StageTimer) records per-stage wall times; `ipa` picks the IPA open of
     the multiopen: "native" (the C++ engine on the host) or "device"
-    (plonk/ipa.py::ipa_open_device). Both give the same proof bytes."""
+    (plonk/ipa.py::ipa_open_device). Both give the same proof bytes. The
+    stages are those of a lockstep batch of one proof (_batch_phase1)."""
     from .hybrid_open import IPA_OPENS, multiopen_open_hybrid
 
     if ipa not in IPA_OPENS:
         raise ValueError(f"ipa must be one of {IPA_OPENS}, not {ipa!r}")
+    st = _batch_phase1(pk, [circuit], [instance], device=device, randbits=randbits,
+                       timer=timer, batch=False)
+    multiopen_open_hybrid(st.pipe, st.all_coeffs_b[0], st.entries_b[0], st.trs[0], randbits,
+                          ipa=ipa)
+    st.timer.mark("multiopen + IPA (device)" if ipa == "device" else "multiopen + IPA")
+    return st.trs[0].bytes()
+
+
+def create_proofs_batch(pk: ProvingKey, circuits, instances, *, device="cuda",
+                        randbits=secrets.randbits, timer: StageTimer | None = None) -> list[bytes]:
+    """Prove a BATCH of statements of one circuit in lockstep on `device`:
+    every device stage runs once over a leading axis of B proofs (their
+    columns in one iNTT, one multi-column MSM a commit stage, one
+    grand-product stack with one inversion, one Z_H division), while the
+    transcripts stay per proof. The multiopen ends in one native IPA open
+    a proof, on up to 4 threads. Every blind comes from `randbits` on the
+    calling thread, in the reference's order (stage by stage, proof by
+    proof within a stage); a batch of one equals create_proof. `timer`
+    records the reference's batch stage names. Returns one proof a
+    statement, in order; each verifies on its own."""
+    st = _batch_phase1(pk, circuits, instances, device=device, randbits=randbits, timer=timer)
+    return _batch_phase2(st, _phase2_draws(st, randbits))
+
+
+def create_proofs_pipelined(jobs, chunk: int = 8, *, device="cuda",
+                            randbits=secrets.randbits) -> list[list[bytes]]:
+    """Prove several batches, each chunk's multiopen and native IPA tails
+    (_batch_phase2, host-bound) on a worker thread while the main thread
+    runs the next chunk's device stages (_batch_phase1).
+
+    jobs: [(pk, circuits, instances), ...]; jobs may use different proving
+    keys (a compliance batch, then resource-logic batches). A job longer
+    than `chunk` is split into lockstep batches of `chunk`. On a CUDA
+    device the worker runs on its own stream, which first waits for the
+    main stream's phase 1 of its chunk. Every value phase 2 draws is drawn
+    on the calling thread right after its chunk's phase 1, so the proofs
+    equal create_proofs_batch called chunk by chunk on the same
+    `randbits`, at any thread timing. A failure in either thread fails the
+    call. Returns one list of proofs a job, in job order."""
+    dev = L.resolve_device(device)
+    pieces = [(ji, pk, circuits[lo : lo + chunk], instances[lo : lo + chunk])
+              for ji, (pk, circuits, instances) in enumerate(jobs)
+              for lo in range(0, len(circuits), chunk)]
+    for pk in {id(pk): pk for _, pk, _, _ in pieces}.values():
+        get_pipeline(pk, dev).prepare()
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    results: list[list[bytes]] = [[] for _ in jobs]
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = fut_ji = None
+        for ji, pk, cs, insts in pieces:
+            st = _batch_phase1(pk, cs, insts, device=dev, randbits=randbits)
+            draws = _phase2_draws(st, randbits)
+            ready = _hand_over(st, side)
+            if fut is not None:
+                results[fut_ji].extend(fut.result())
+            fut, fut_ji = ex.submit(_phase2_on, side, ready, st, draws), ji
+        if fut is not None:
+            results[fut_ji].extend(fut.result())
+    return results
+
+
+def _hand_over(st: "_Phase1", side):
+    """Order phase 2 on stream `side` after phase 1 on the current stream:
+    an event recorded at phase 1's end, and the coefficient stack phase 2
+    reads marked as used on `side`, so that the caching allocator does not
+    give its memory to the next chunk while `side` still reads it."""
+    if side is None:
+        return None
+    st.all_coeffs_b.record_stream(side)
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(st.pipe.device))
+    return ev
+
+
+def _phase2_on(side, ready, st: "_Phase1", draws) -> list[bytes]:
+    if side is None:
+        return _batch_phase2(st, draws)
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        return _batch_phase2(st, draws)
+
+
+class _Phase1:
+    """What a batch's phase 2 needs: the pipeline, the (B, C, n, 16)
+    coefficient stack, each proof's opening entries and transcript, the
+    stage timer."""
+
+    def __init__(self, pipe, all_coeffs_b, entries_b, trs, timer):
+        self.pipe = pipe
+        self.all_coeffs_b = all_coeffs_b
+        self.entries_b = entries_b
+        self.trs = trs
+        self.timer = timer
+
+
+def _phase2_draws(st: _Phase1, randbits):
+    """Every value phase 2 of a batch draws, drawn now on the calling
+    thread in the order a serial phase 2 draws them: the B h blinds of the
+    multiopen, then each proof's native IPA open (native_open.draws)."""
+    from .native_open import draws
+
+    B, k = len(st.trs), st.pipe.k
+    h_blinds = [randbits(300) % P for _ in range(B)]
+    tails = [[randbits(300) for _ in range(draws(k))] for _ in range(B)]
+    return h_blinds, tails
+
+
+def _batch_phase2(st: _Phase1, draws) -> list[bytes]:
+    """The host-bound tail of a lockstep batch: the batched hybrid
+    multiopen and the native IPA opens, on the values of _phase2_draws."""
+    from .hybrid_open import multiopen_open_hybrid_batch
+
+    h_blinds, tails = draws
+    multiopen_open_hybrid_batch(st.pipe, st.all_coeffs_b, st.entries_b, st.trs, h_blinds, tails)
+    st.timer.mark("multiopen + IPA (batch)")
+    return [tr.bytes() for tr in st.trs]
+
+
+def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, timer=None,
+                  batch: bool = True) -> _Phase1:
+    """The device-heavy front of a lockstep batch, witness synthesis through
+    the query evaluations, for B statements of one circuit. Draws, all from
+    `randbits`, stage by stage and proof by proof within a stage: the
+    witness fillers, the advice blinds, the lookup rows (by proof, lookup,
+    A' then S'), the A' then the S' blinds, the z rows and blinds, the
+    lookup z rows and blinds, the h blinds. `batch` picks the stage names:
+    the reference's batch names, or its single-proof names."""
     vk = pk.vk
-    k, n, u = vk.k, vk.n, vk.usable_rows
+    n, u = vk.n, vk.usable_rows
     omega = vk.omega
     pipe = get_pipeline(pk, device)
     dev = pipe.device
-    inst = [v.v if isinstance(v, Fp) else int(v) % P for v in instance]
+    B = len(circuits)
+    if B < 1 or len(instances) != B:
+        raise ValueError(f"{B} circuits and {len(instances)} instances: need one each, B >= 1")
     rand = _Rand(randbits)
     st_t = timer if timer is not None else _NoTimer()
-
-    # --- synthesize witness ------------------------------------------
+    suffix = " (batch)" if batch else ""
+    mark = lambda name: st_t.mark(name + suffix)
     cs = vk.cs
-    builder = CircuitBuilder(cs, k, "prove")
-    circuit.synthesize(builder, pk.config)
-    advice = builder.advice
-    for col in advice:
-        for i in range(u, n):
-            col[i] = rand()
-    st_t.mark("witness synthesis")
+    lookups = cs.lookups
+    nlk = len(lookups)
+    insts = [[v.v if isinstance(v, Fp) else int(v) % P for v in inst] for inst in instances]
 
-    tr = ProofWriter(b"taiga-tpu-plonk")
-    tr.absorb_bytes(vk.digest)
-    tr.absorb_bytes(len(inst).to_bytes(4, "little"))
-    for v in inst:
-        tr.absorb_scalar(Fp(v))
+    # --- synthesize the witnesses --------------------------------------
+    advices = []
+    for circuit in circuits:
+        builder = CircuitBuilder(cs, vk.k, "prove")
+        circuit.synthesize(builder, pk.config)
+        for col in builder.advice:
+            for i in range(u, n):
+                col[i] = rand()
+        advices.append(builder.advice)
+    mark("witness synthesis")
 
-    # --- advice commitments ------------------------------------------
-    inst_col = inst + [0] * (n - len(inst))
-    advice_v = pipe._t(np.stack([L.FP.array_to_mont(col) for col in advice]))  # (A, n, 16)
-    advice_c = pipe.values_to_coeffs(advice_v)
-    advice_blinds = [rand() for _ in advice]
-    for pt in pipe.commit_coeff_rows(advice_c, advice_blinds):
-        tr.write_point(pt)
-    st_t.mark("advice commit")
+    trs = []
+    for inst in insts:
+        tr = ProofWriter(b"taiga-tpu-plonk")
+        tr.absorb_bytes(vk.digest)
+        tr.absorb_bytes(len(inst).to_bytes(4, "little"))
+        for v in inst:
+            tr.absorb_scalar(Fp(v))
+        trs.append(tr)
+
+    def commit(coeffs_b, blinds_b, order=None):
+        """One multi-column MSM over every proof's columns, (B, C, n, 16),
+        rows proof by proof; each proof's C points go to its transcript in
+        column order, or in `order` (column indices)."""
+        C = coeffs_b.shape[1]
+        pts = pipe.commit_coeff_rows(coeffs_b.reshape(B * C, n, L.NLIMBS),
+                                     [b for bs in blinds_b for b in bs])
+        for bi, tr in enumerate(trs):
+            for j in order or range(C):
+                tr.write_point(pts[bi * C + j])
+
+    # --- advice commitments ----------------------------------------------
+    ncols = cs.num_advice
+    advice_vb = pipe._t(np.stack([np.stack([L.FP.array_to_mont(col) for col in adv])
+                                  for adv in advices]))  # (B, A, n, 16)
+    inst_vb = pipe._t(np.stack([L.FP.array_to_mont(inst + [0] * (n - len(inst)))[None]
+                                for inst in insts]))  # (B, 1, n, 16)
+    advice_cb = pipe.values_to_coeffs(advice_vb)
+    advice_blinds = [[rand() for _ in range(ncols)] for _ in range(B)]
+    commit(advice_cb, advice_blinds)
+    mark("advice commit")
 
     # --- lookup permuted columns (halo2 lookup::commit_permuted) -------
-    lookups = vk.cs.lookups
-    theta = 0
-    lk_a_v = lk_s_v = lk_ap_v = lk_sp_v = None
-    lk_ap_c = lk_sp_c = None
-    lk_ap_blinds = lk_sp_blinds = []
-    inst_v = pipe._t(L.FP.array_to_mont(inst_col))[None]
+    thetas = [0] * B
+    lk_a_vb = lk_s_vb = lk_ap_vb = lk_sp_vb = lk_ap_cb = lk_sp_cb = None
+    lk_ap_blinds = lk_sp_blinds = [[] for _ in range(B)]
     if lookups:
-        theta = tr.challenge(b"theta").v
-        lk_a_v, lk_s_v = pipe.lookup_as_values(advice_v, inst_v, theta)
-        nlk = len(lookups)
-        ap_u, sp_u, lk_ok = LS.permute_pairs_device(lk_a_v, lk_s_v, u)
+        thetas = [tr.challenge(b"theta").v for tr in trs]
+        lk_a_vb, lk_s_vb = pipe.lookup_as_values_batch(advice_vb, inst_vb, thetas)
+        flat = lambda a: a.reshape(B * nlk, n, L.NLIMBS)
+        ap_u, sp_u, lk_ok = LS.permute_pairs_device(flat(lk_a_vb), flat(lk_s_vb), u)
         # checked at once (the host has just waited on the advice commit):
         # left until after the quotient, a failing lookup surfaces as a
         # quotient that does not divide, as in taiga_tpu/plonk/prover.py,
         # whose device path asserts the degree (:1001) before it reads the
         # flag (:1063)
-        if not bool(lk_ok.all()):
-            raise ValueError("lookup failure: input value not in table")
-        # blinding rows drawn per lookup ap-then-sp — the host prover's order
-        rand_rows = [rand.mont_rows(n - u) for _ in range(2 * nlk)]
-        ap_rand = pipe._t(np.stack(rand_rows[0::2]))
-        sp_rand = pipe._t(np.stack(rand_rows[1::2]))
-        lk_ap_v = torch.cat([ap_u, ap_rand], dim=1)
-        lk_sp_v = torch.cat([sp_u, sp_rand], dim=1)
-        both_c = pipe.values_to_coeffs(torch.cat([lk_ap_v, lk_sp_v], dim=0))
-        lk_ap_c, lk_sp_c = both_c[:nlk], both_c[nlk:]
-        lk_ap_blinds = [rand() for _ in lookups]
-        lk_sp_blinds = [rand() for _ in lookups]
-        pts = pipe.commit_coeff_rows(both_c, lk_ap_blinds + lk_sp_blinds)
-        for a_pt, s_pt in zip(pts[:nlk], pts[nlk:]):
-            tr.write_point(a_pt)
-            tr.write_point(s_pt)
-        st_t.mark("lookup permuted commit")
+        bad = [bi for bi in range(B) if not bool(lk_ok[bi * nlk : (bi + 1) * nlk].all())]
+        if bad:
+            raise ValueError(f"lookup failure: input value not in table (proofs {bad})")
+        # blinding rows by (proof, lookup), A' then S': the host prover's
+        # order within a proof
+        rand_rows = [rand.mont_rows(n - u) for _ in range(2 * B * nlk)]
+        lk_ap_vb = torch.cat([ap_u, pipe._t(np.stack(rand_rows[0::2]))], dim=1)
+        lk_sp_vb = torch.cat([sp_u, pipe._t(np.stack(rand_rows[1::2]))], dim=1)
+        lk_ap_vb = lk_ap_vb.reshape(B, nlk, n, L.NLIMBS)
+        lk_sp_vb = lk_sp_vb.reshape(B, nlk, n, L.NLIMBS)
+        both_cb = pipe.values_to_coeffs(torch.cat([lk_ap_vb, lk_sp_vb], dim=1))
+        lk_ap_cb, lk_sp_cb = both_cb[:, :nlk], both_cb[:, nlk:]
+        lk_ap_blinds = [[rand() for _ in range(nlk)] for _ in range(B)]
+        lk_sp_blinds = [[rand() for _ in range(nlk)] for _ in range(B)]
+        # rows per proof A'_0..A'_L, S'_0..S'_L; transcript A'_0, S'_0, A'_1, ...
+        commit(both_cb, [a + s for a, s in zip(lk_ap_blinds, lk_sp_blinds)],
+               order=[j for li in range(nlk) for j in (li, nlk + li)])
+        mark("lookup permuted commit")
 
-    beta = tr.challenge(b"beta").v
-    gamma = tr.challenge(b"gamma").v
+    betas = [tr.challenge(b"beta").v for tr in trs]
+    gammas = [tr.challenge(b"gamma").v for tr in trs]
 
     # --- permutation products ----------------------------------------
     st = pipe.static_tables()
-    perm_tables = []
+    perm_cols = []
     for kind, idx in vk.perm_cols:
         if kind == ADVICE:
-            perm_tables.append(advice_v[idx])
+            perm_cols.append(advice_vb[:, idx])
         elif kind == FIXED:
-            perm_tables.append(st["fixed_v"][idx])
+            perm_cols.append(st["fixed_v"][idx].expand(B, n, L.NLIMBS))
         else:
-            perm_tables.append(inst_v[0])
-    z_v = pipe.z_values(torch.stack(perm_tables), beta, gamma, rand)
-    st_t.mark("perm grand products")
-    z_c = pipe.values_to_coeffs(z_v)
-    z_blinds = [rand() for _ in range(z_v.shape[0])]
-    lk_z_c = None
-    lk_z_blinds = []
+            perm_cols.append(inst_vb[:, 0])
+    z_vb = pipe.z_values_batch(torch.stack(perm_cols, dim=1), betas, gammas, rand)
+    mark("perm grand products")
+    z_cb = pipe.values_to_coeffs(z_vb)
+    nz = z_vb.shape[1]
+    z_blinds = [[rand() for _ in range(nz)] for _ in range(B)]
+    lk_z_cb = None
+    lk_z_blinds = [[] for _ in range(B)]
     if lookups:
         # permutation + lookup grand products commit in ONE batched MSM
-        # (transcript order: z chunks, then lookup z's)
-        lk_z_v = pipe.lookup_z_values(lk_a_v, lk_s_v, lk_ap_v, lk_sp_v, beta, gamma, rand)
-        lk_z_c = pipe.values_to_coeffs(lk_z_v)
-        lk_z_blinds = [rand() for _ in lookups]
-        pts = pipe.commit_coeff_rows(torch.cat([z_c, lk_z_c], dim=0), z_blinds + lk_z_blinds)
+        # (transcript order per proof: z chunks, then lookup z's)
+        lk_z_vb = pipe.lookup_z_values_batch(lk_a_vb, lk_s_vb, lk_ap_vb, lk_sp_vb, betas,
+                                             gammas, rand)
+        lk_z_cb = pipe.values_to_coeffs(lk_z_vb)
+        lk_z_blinds = [[rand() for _ in range(nlk)] for _ in range(B)]
+        commit(torch.cat([z_cb, lk_z_cb], dim=1),
+               [zb + lb for zb, lb in zip(z_blinds, lk_z_blinds)])
     else:
-        pts = pipe.commit_coeff_rows(z_c, z_blinds)
-    for pt in pts:
-        tr.write_point(pt)
-    st_t.mark("z commit")
+        commit(z_cb, z_blinds)
+    mark("z commit")
 
-    y = tr.challenge(b"y").v
+    ys = [tr.challenge(b"y").v for tr in trs]
 
     # --- quotient -----------------------------------------------------
-    inst_c = pipe.values_to_coeffs(inst_v)
-    advice_e = pipe.to_ext(advice_c)
-    inst_e = pipe.to_ext(inst_c)
-    z_e = pipe.to_ext(z_c)
+    inst_cb = pipe.values_to_coeffs(inst_vb)
+    advice_eb = pipe.to_ext(advice_cb)
+    inst_eb = pipe.to_ext(inst_cb)
+    z_eb = pipe.to_ext(z_cb)
     lk_kwargs = {}
     if lookups:
-        lk_kwargs = dict(
-            theta=theta,
-            lk_a_e=pipe.to_ext(lk_ap_c),
-            lk_s_e=pipe.to_ext(lk_sp_c),
-            lk_z_e=pipe.to_ext(lk_z_c),
-        )
-    st_t.mark("extend advice/inst/z")
-    h_all = pipe.quotient_coeffs(advice_e, inst_e, z_e, beta, gamma, y, **lk_kwargs)
+        lk_kwargs = dict(lk_a_eb=pipe.to_ext(lk_ap_cb), lk_s_eb=pipe.to_ext(lk_sp_cb),
+                         lk_z_eb=pipe.to_ext(lk_z_cb))
+    st_t.mark("extend (batch)" if batch else "extend advice/inst/z")
+    h_all_b = pipe.quotient_coeffs_batch(advice_eb, inst_eb, z_eb, betas, gammas, ys, thetas,
+                                         **lk_kwargs)
+    del advice_eb, inst_eb, z_eb, lk_kwargs
     # degree check: pieces beyond NUM_H_PIECES*n must vanish
-    tail = L.from_mont(h_all[NUM_H_PIECES * n :], L.FP)
-    if bool(tail.any()):
+    if bool(L.from_mont(h_all_b[:, NUM_H_PIECES * n :], L.FP).any()):
         raise AssertionError("quotient degree overflow")
-    st_t.mark("quotient eval")
-    h_pieces = h_all[: NUM_H_PIECES * n].reshape(NUM_H_PIECES, n, L.NLIMBS)
-    h_blinds = [rand() for _ in range(NUM_H_PIECES)]
-    for pt in pipe.commit_coeff_rows(h_pieces, h_blinds):
-        tr.write_point(pt)
-    st_t.mark("h commit")
+    mark("quotient eval")
+    h_pieces_b = h_all_b[:, : NUM_H_PIECES * n].reshape(B, NUM_H_PIECES, n, L.NLIMBS)
+    h_blinds = [[rand() for _ in range(NUM_H_PIECES)] for _ in range(B)]
+    commit(h_pieces_b, h_blinds)
+    mark("h commit")
 
-    x = tr.challenge(b"x").v
+    xs = [tr.challenge(b"x").v for tr in trs]
 
     # --- stack all committed coefficient tables -----------------------
     # order must match collect_queries kinds
-    empty_c = torch.zeros((0, n, L.NLIMBS), dtype=L.DTYPE, device=dev)
+    empty_b = torch.zeros((B, 0, n, L.NLIMBS), dtype=L.DTYPE, device=dev)
+    fixed_b = st["fixed_c"].expand((B,) + tuple(st["fixed_c"].shape))
+    sigma_b = st["sigma_c"].expand((B,) + tuple(st["sigma_c"].shape))
     kind_stacks = {
-        ADVICE: (advice_c, advice_blinds),
-        FIXED: (st["fixed_c"], [0] * st["fixed_c"].shape[0]),
-        SIGMA: (st["sigma_c"], [0] * st["sigma_c"].shape[0]),
-        Z: (z_c, z_blinds),
-        LOOKUP_A: (lk_ap_c if lookups else empty_c, lk_ap_blinds),
-        LOOKUP_S: (lk_sp_c if lookups else empty_c, lk_sp_blinds),
-        LOOKUP_Z: (lk_z_c if lookups else empty_c, lk_z_blinds),
-        QUOTIENT: (h_pieces, h_blinds),
+        ADVICE: (advice_cb, advice_blinds),
+        FIXED: (fixed_b, [[0] * fixed_b.shape[1]] * B),
+        SIGMA: (sigma_b, [[0] * sigma_b.shape[1]] * B),
+        Z: (z_cb, z_blinds),
+        LOOKUP_A: (lk_ap_cb if lookups else empty_b, lk_ap_blinds),
+        LOOKUP_S: (lk_sp_cb if lookups else empty_b, lk_sp_blinds),
+        LOOKUP_Z: (lk_z_cb if lookups else empty_b, lk_z_blinds),
+        QUOTIENT: (h_pieces_b, h_blinds),
     }
     kind_order = (ADVICE, FIXED, SIGMA, Z, LOOKUP_A, LOOKUP_S, LOOKUP_Z, QUOTIENT)
-
-    # --- evaluations at the query points (device) ---------------------
-    queries = pipe.queries
-    rotset = sorted({rot % n for (_, _, rot) in queries})
-    points = {rot: x * pow(omega, rot, P) % P for rot in rotset}
-    all_coeffs = torch.cat(
-        [kind_stacks[kd][0] for kd in kind_order if kind_stacks[kd][0].shape[0]], dim=0)
+    all_coeffs_b = torch.cat([kind_stacks[kd][0] for kd in kind_order
+                              if kind_stacks[kd][0].shape[1]], dim=1)  # (B, C, n, 16)
     offsets = {}
     off = 0
     for kd in kind_order:
         offsets[kd] = off
-        off += kind_stacks[kd][0].shape[0]
-    pts_mont = torch.stack([_mont_scalar(points[rot], dev) for rot in rotset])
-    evals_dev = poly.eval_polys_at_points(all_coeffs, pts_mont)  # (Q, C, 16)
+        off += kind_stacks[kd][0].shape[1]
+
+    # --- evaluations at the query points (device) ---------------------
+    queries = pipe.queries
+    rotset = sorted({rot % n for (_, _, rot) in queries})
+    points_b = [{rot: x * pow(omega, rot, P) % P for rot in rotset} for x in xs]
+    pts_mont_b = pipe._t(np.stack([np.stack([L.int_to_limbs(pts[rot] * L.FP.r % P)
+                                             for rot in rotset]) for pts in points_b]))
+    evals_dev = poly.eval_polys_at_points(all_coeffs_b, pts_mont_b)  # (B, Q, C, 16)
     ev_ints = L.limbs_to_ints(L.from_mont(evals_dev, L.FP))
-    ncols = all_coeffs.shape[0]
-    evals_host = {}
-    for qi, rot in enumerate(rotset):
-        for kd in kind_order:
-            base = offsets[kd]
-            for ci in range(kind_stacks[kd][0].shape[0]):
-                evals_host[(kd, ci, rot)] = ev_ints[qi * ncols + base + ci]
-
-    evals = {}
-    for kind, idx, rot in queries:
-        v = evals_host[(kind, idx, rot % n)]
-        evals[(kind, idx, rot)] = v
-        tr.write_scalar(Fp(v))
-    st_t.mark("query evals")
-
-    # --- multiopen (device aggregation + the IPA open) -----------------
-    entries = []
-    for kind, idx, rot in queries:
-        entries.append(
-            {
+    ncols_all, nq = all_coeffs_b.shape[1], len(rotset)
+    row = {rot: qi for qi, rot in enumerate(rotset)}
+    entries_b = []
+    for bi, tr in enumerate(trs):
+        entries = []
+        for kind, idx, rot in queries:
+            v = ev_ints[(bi * nq + row[rot % n]) * ncols_all + offsets[kind] + idx]
+            tr.write_scalar(Fp(v))
+            entries.append({
                 "coeff_idx": offsets[kind] + idx,
-                "blind": kind_stacks[kind][1][idx],
-                "point": points[rot % n],
-                "value": evals[(kind, idx, rot)],
-            }
-        )
-    multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits, ipa=ipa)
-    st_t.mark("multiopen + IPA (device)" if ipa == "device" else "multiopen + IPA")
-    return tr.bytes()
+                "blind": kind_stacks[kind][1][bi][idx],
+                "point": points_b[bi][rot % n],
+                "value": v,
+            })
+        entries_b.append(entries)
+    mark("query evals")
+    return _Phase1(pipe, all_coeffs_b, entries_b, trs, st_t)

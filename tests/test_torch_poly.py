@@ -57,3 +57,19 @@ def test_evaluation_division_and_combination():
     _both(JP.synthetic_div, TP.synthetic_div, coeffs, pt, pt_inv)
     w = _vals((3,), 9)
     _both(JP.mont_linear_combo, TP.mont_linear_combo, coeffs, w)
+
+
+def test_batched_forms_equal_one_proof_at_a_time():
+    """The batch prover's forms: a leading axis of proofs, each stack with
+    its own points and weights, gives what each proof gives alone."""
+    t = lambda x: torch.as_tensor(x.astype(np.int32))
+    coeffs, pts, inv, w = t(_vals((2, 3, 64), 10)), t(_vals((2, 2), 11)), \
+        t(_vals((2, 3), 12)), t(_vals((2, 3), 13))
+    got_ev = TP.eval_polys_at_points(coeffs, pts)
+    got_sd = TP.synthetic_div(coeffs, pts[:, :1].expand(2, 3, 16), inv)
+    got_lc = TP.mont_linear_combo(coeffs, w)
+    for b in range(2):
+        assert torch.equal(got_ev[b], TP.eval_polys_at_points(coeffs[b], pts[b]))
+        assert torch.equal(got_lc[b], TP.mont_linear_combo(coeffs[b], w[b]))
+        for c in range(3):
+            assert torch.equal(got_sd[b, c], TP.synthetic_div(coeffs[b, c], pts[b, 0], inv[b, c]))
