@@ -71,7 +71,26 @@ exit code and no result line:
      proofs and prove_resource_logics_batch on the 2 trivial circuits, each
      equal byte for byte to the same call through the plain versions on the
      card under the same seeds (K1 is also held and timed at a batch of 8's
-     width, 8 x 8n = 524,288 lanes, in phase 4).
+     width, 8 x 8n = 524,288 lanes, in phase 4);
+  8. (run after 7) the transaction path: the keygens and device tables of
+     the five logics new to it (token, signature verification, receiver,
+     or-relation intent, partial-fulfillment intent; each timed); (a) the
+     three example flows of taiga_tpu_torch/examples in transparent mode
+     with the mock prover on the card, whose nullifiers and output
+     commitments (computed on the host) must equal a CPU run of the same
+     seed, and one logic of each of the six classes they carry through the
+     mock prover on the card and on the CPU, satisfied and broken, with
+     equal gate masks and failure lists; (b) the three
+     flows in shielded mode at k = 13 (compliance) and k = 12 (logics),
+     seeded, each of which must pass Transaction.execute() and be refused
+     with one byte of one resource-logic proof flipped, timed partial
+     transaction by partial transaction with proofs per second, kernel
+     launches counted over the three flows (zeroed before (b), read after
+     it) and over one swap leg, and the peak device memory; (c)
+     prove_resource_logics_batch on one swap leg's [token, signature
+     verification, token, receiver] through the kernels and through the
+     plain versions on the card, byte-equal (K4 on the 10- and 13-column
+     app tapes, K1 and the MSMs at k = 12).
 
 Usage: python3 chip_smoke.py [--seed 7]
 Needs one CUDA device and the CUDA toolkit (nvcc); imports nothing of JAX.
@@ -887,23 +906,24 @@ def phase_horner(rng, dev):
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device",
-    # "batch": a lockstep batch or the pipeline, which open natively)
+    # "batch": a lockstep batch or the pipeline, which open natively; "tx":
+    # the shielded transaction flows of phase 8)
     ("mont_mul", "mont_mul_lm", "taiga_tpu_torch/csrc/mont_mul.cu",
-     "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch")),
+     "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch", "tx")),
     ("ec_add_proj", "ec_add_proj_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device", "batch")),
+     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device", "batch", "tx")),
     # K3's rounds on both paths go through ec_seg_rounds, its chained form
     ("ec_add_proj_sel", "ec_add_proj_sel_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
      "taiga_tpu/ops/ff_kernels.py:511", ()),
     # K3 chained: the segmented rounds over K3 of the MSMs' bucket passes
     ("ec_seg_rounds", "ec_seg_rounds_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:74-90", ("native", "device", "batch")),
+     "taiga_tpu/ops/msm.py:74-90", ("native", "device", "batch", "tx")),
     # K2 chained: the scan over K2 that combines an MSM's windows (and its
     # bit Horner, :158-173)
     ("ec_horner", "ec_horner_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:417-424", ("native", "device", "batch")),
+     "taiga_tpu/ops/msm.py:417-424", ("native", "device", "batch", "tx")),
     ("tape_eval", "tape_eval_lm", "taiga_tpu_torch/csrc/tape_eval.cu",
-     "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch")),
+     "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch", "tx")),
     ("ec_fold_shared", "ec_fold_shared_lm", "taiga_tpu_torch/csrc/ec_fold_shared.cu",
      "taiga_tpu/ops/ff_kernels.py:623", ("device",)),
     ("ec_add", "ec_add_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
@@ -926,7 +946,7 @@ def zero_counts():
 
 def read_counts(what: str, path: str) -> dict:
     """The launch counts since zero_counts(); fails if a kernel of the path
-    ("native" or "device" IPA, "batch") was never launched."""
+    ("native" or "device" IPA, "batch", "tx") was never launched."""
     counts = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
     for name, _, _, _, paths in KERNELS:
         if path in paths and counts[name] == 0:
@@ -1232,6 +1252,266 @@ def phase_batch(pk, seed: int, single_proof: bytes):
                                         t_two=t_two)
 
 
+# --- phase 8: the transaction path ------------------------------------------
+
+FLOWS = (  # name, the example flow's function in taiga_tpu_torch/examples/tx_examples.py
+    ("three-party swap", "create_token_swap_transaction"),
+    ("intent-matched swap", "create_token_swap_intent_transaction"),
+    ("partial-fulfillment swap", "create_partial_fulfillment_transaction"),
+)
+CPU_THREADS = 8  # torch's intra-op threads for the transparent flows' CPU run
+
+
+def ptx_proofs(ptx) -> int:
+    return len(ptx.compliances) + sum(1 + len(s.app_dynamic_resource_logic_verifying_info)
+                                      for s in ptx.inputs + ptx.outputs)
+
+
+def swap_leg_logics(seed: int):
+    """The four resource-logic circuits of one leg of the three-party swap,
+    in the order ShieldedPartialTransaction.build proves them: [token,
+    signature verification, token, receiver] (the input's app logic and its
+    dynamic logic, then the output's)."""
+    from taiga_tpu_torch.apps import Token
+    from taiga_tpu_torch.core.nullifier import NullifierKeyContainer
+    from taiga_tpu_torch.crypto.curves import PallasPoint
+    from taiga_tpu_torch.crypto.fields import Fq
+    from taiga_tpu_torch.examples import tx_examples as X
+
+    rng = random.Random(seed)
+    auth_sk = Fq.random(rng)
+    nk = NullifierKeyContainer.random_key(rng)
+    leg = X.create_token_swap_ptx(rng, Token("btc", 5), auth_sk, nk.get_nk(), Token("eth", 10),
+                                  PallasPoint.generator() * auth_sk.v, nk.get_npk(),
+                                  "transparent", device="cuda")
+    flat = []
+    for app in leg.input_resource_app + leg.output_resource_app:
+        flat.append(app.app_resource_logic_bytecode.decode())
+        flat += [bc.decode() for bc in app.dynamic_resource_logic_bytecode]
+    return flat
+
+
+def transparent_logics(tx) -> list:
+    """One decoded resource-logic circuit of each class that a transparent
+    transaction's partial transactions carry, in order of first appearance."""
+    seen = {}
+    for ptx in tx.transparent_ptx_bundle.partial_txs:
+        for app in ptx.input_resource_app + ptx.output_resource_app:
+            for bc in [app.app_resource_logic_bytecode] + app.dynamic_resource_logic_bytecode:
+                c = bc.decode()
+                seen.setdefault(type(c), c)
+    return list(seen.values())
+
+
+def mock_twin(circuit, k: int, devices=("cuda", "cpu")) -> tuple[int, int]:
+    """The mock prover's gate masks and failure lists of one statement on
+    two devices, on its satisfied witness and on a broken one: the first
+    advice cell of a copy and every advice cell of rows 0-7 and of every
+    397th row from row 11 moved by -2, and
+    the first public input moved by one. One synthesis feeds both devices.
+    The masks must be equal bit for bit and the failure lists string for
+    string; the satisfied witness must show no failure and the broken one
+    a failing gate and a copy mismatch. Returns the failing gate rows and
+    the failures of the broken witness."""
+    from taiga_tpu_torch.plonk.expression import ADVICE
+    from taiga_tpu_torch.plonk.mock import P, MockProver, gate_masks
+
+    name = type(circuit).__name__
+    first = MockProver.run(k, circuit, circuit.get_public_inputs(), device=devices[0])
+    mps = [first] + [MockProver(k, first.builder, first.instance, type(circuit), device=d)
+                     for d in devices[1:]]
+    b = first.builder
+    for broken in (False, True):
+        if broken:
+            (_, col, row), _ = next(c for c in b.copies if c[0][0] == ADVICE)
+            rows = [*range(8), *range(11, b.usable_rows, 397)]
+            cells = {(col, row)} | {(c, r) for c in range(len(b.advice)) for r in rows}
+            for c, r in cells:
+                b.advice[c][r] = (b.advice[c][r] - 2) % P
+            for mp in mps:
+                mp.instance[0] = (mp.instance[0] + 1) % P
+        masks = [gate_masks(b.cs.gates, mp._tables()) for mp in mps]
+        lists = [mp.verify() for mp in mps]
+        what = "broken" if broken else "satisfied"
+        for d, m, fl in zip(devices[1:], masks[1:], lists[1:]):
+            if not np.array_equal(m, masks[0]):
+                raise AssertionError(f"mock {name} ({what}): gate masks differ, {devices[0]} "
+                                     f"against {d}")
+            if fl != lists[0]:
+                raise AssertionError(f"mock {name} ({what}): failure lists differ, "
+                                     f"{devices[0]} against {d}")
+        fl = lists[0]
+        if not broken and (masks[0].any() or fl):
+            raise AssertionError(f"mock {name}: the satisfied witness fails: {fl[:3]}")
+        if broken and not (masks[0].any() and any(f.startswith("gate '") for f in fl)
+                           and any(f.startswith("copy mismatch") for f in fl)):
+            raise AssertionError(f"mock {name}: the broken witness shows no failing gate or "
+                                 f"no copy mismatch: {fl[:3]}")
+    return int(masks[0].sum()), len(fl)
+
+
+def phase_tx(seed: int, smi: str):
+    """Phase 8: the shielded transaction path on the card. (a) the three
+    example flows in transparent mode, the mock prover on the card, against
+    their CPU run, and its gate masks and failure lists on one logic of
+    each class (mock_twin); (b) the three flows in shielded mode at k = 13 / 12,
+    each executed, one tampered proof refused, timed by partial
+    transaction; (c) prove_resource_logics_batch on one swap leg's logics
+    against its plain-version twin. Returns the launches of (b) and of its
+    first partial transaction (one swap leg)."""
+    import torch
+    from taiga_tpu_torch.apps import (
+        OrRelationIntentResourceLogicCircuit, PartialFulfillmentIntentResourceLogicCircuit,
+        ReceiverResourceLogicCircuit, SignatureVerificationResourceLogicCircuit,
+        TokenResourceLogicCircuit)
+    from taiga_tpu_torch.core import ptx as PTX
+    from taiga_tpu_torch.core.error import TransactionError
+    from taiga_tpu_torch.core.proving import (
+        Proof, get_proving_key, prove_resource_logics_batch, resource_logic_k)
+    from taiga_tpu_torch.examples import tx_examples as X
+    from taiga_tpu_torch.ops import ff_kernels as FK
+    from taiga_tpu_torch.plonk.prover import get_pipeline
+
+    rk = resource_logic_k()
+    torch.cuda.reset_peak_memory_stats()
+    # the proving keys of the five logics new to this phase (the trivial
+    # logic's and the compliance circuit's were made before), and their
+    # device tables
+    for cls in (TokenResourceLogicCircuit, SignatureVerificationResourceLogicCircuit,
+                ReceiverResourceLogicCircuit, OrRelationIntentResourceLogicCircuit,
+                PartialFulfillmentIntentResourceLogicCircuit):
+        t0 = time.perf_counter()
+        pk = get_proving_key(cls, rk)
+        t1 = time.perf_counter()
+        get_pipeline(pk, "cuda").prepare()
+        torch.cuda.synchronize()
+        log(f"keygen {cls.__name__} k={rk} (host, native engine): {t1 - t0:.2f} s; its device "
+            f"tables {time.perf_counter() - t1:.2f} s; {pk.vk.cs.num_advice} advice, "
+            f"{len(pk.vk.perm_cols)} permutation columns")
+
+    # 8a: the transparent flows, the mock prover on the card and on the CPU.
+    # A flow executes only if the mock accepts every logic on its device, but
+    # its nullifiers and output commitments come from the host, so the mock's
+    # device work is held by mock_twin: its gate masks and failure lists on
+    # the card against the CPU, satisfied and broken, one logic of each class
+    mocked = {}
+    for i, (name, fn) in enumerate(FLOWS):
+        flow = getattr(X, fn)
+        t0 = time.perf_counter()
+        tx = flow(random.Random(seed + i), mode="transparent", device="cuda")
+        got = tx.execute()
+        t_gpu = time.perf_counter() - t0
+        threads = torch.get_num_threads()
+        torch.set_num_threads(CPU_THREADS)
+        try:
+            t0 = time.perf_counter()
+            want = flow(random.Random(seed + i), mode="transparent", device="cpu").execute()
+            t_cpu = time.perf_counter() - t0
+            for c in transparent_logics(tx):
+                if type(c) not in mocked:
+                    t0 = time.perf_counter()
+                    rows, fails = mock_twin(c, rk)
+                    mocked[type(c)] = True
+                    log(f"  mock prover {type(c).__name__}: gate masks and failure lists equal "
+                        f"on cuda and cpu, satisfied (none) and broken ({rows} failing gate "
+                        f"rows, {fails} failures); {time.perf_counter() - t0:.2f} s")
+        finally:
+            torch.set_num_threads(threads)
+        for what in ("nullifiers", "output_cms"):
+            if [v.inner().v for v in getattr(got, what)] != [v.inner().v for v in getattr(want, what)]:
+                raise AssertionError(f"the transparent {name}'s {what} differ between cuda and cpu")
+        log(f"transparent {name}: executed, mock prover on cuda {t_gpu:.2f} s, on the cpu "
+            f"({CPU_THREADS} threads) {t_cpu:.2f} s; {len(got.nullifiers)} nullifiers and "
+            f"output commitments (computed on the host) equal")
+    if len(mocked) != 6:
+        raise AssertionError(f"the mock twin saw {len(mocked)} logic classes, not 6")
+
+    # 8b: the shielded flows, each partial transaction timed through a view
+    # of ShieldedPartialTransaction that the examples build through
+    built = []
+
+    class Timed:
+        @staticmethod
+        def build(*a, **kw):
+            before = {n: _wrapper(attr).launches for n, attr, _, _, _ in KERNELS}
+            t0 = time.perf_counter()
+            ptx = PTX.ShieldedPartialTransaction.build(*a, **kw)
+            torch.cuda.synchronize()
+            built.append((time.perf_counter() - t0, ptx_proofs(ptx),
+                          {n: _wrapper(attr).launches - before[n]
+                           for n, attr, _, _, _ in KERNELS}))
+            return ptx
+
+    zero_counts()
+    leg = None
+    for i, (name, fn) in enumerate(FLOWS):
+        built.clear()
+        X.ShieldedPartialTransaction = Timed
+        try:
+            t0 = time.perf_counter()
+            tx = getattr(X, fn)(random.Random(seed + 10 + i), mode="shielded", device="cuda",
+                                randbits=seeded_randbits(seed + 20 + i))
+            t_build = time.perf_counter() - t0
+        finally:
+            X.ShieldedPartialTransaction = PTX.ShieldedPartialTransaction
+        t0 = time.perf_counter()
+        result = tx.execute()
+        t_exec = time.perf_counter() - t0
+        info = tx.shielded_ptx_bundle.partial_txs[0].inputs[0].app_resource_logic_verifying_info
+        good = info.proof
+        data = bytearray(good.data)
+        data[64] ^= 1
+        info.proof = Proof(bytes(data))
+        try:
+            tx.execute()
+            raise AssertionError(f"the shielded {name} executed with a tampered proof")
+        except TransactionError as e:
+            refused = type(e).__name__
+        finally:
+            info.proof = good
+        proofs = sum(n for _, n, _ in built)
+        if leg is None:
+            leg = built[0]
+        for j, (t, n, _) in enumerate(built):
+            log(f"  {name}, partial transaction {j}: {n} proofs in {t:.2f} s "
+                f"({n / t:.4f} proofs/s)   [{smi}]")
+        log(f"shielded {name}: {len(built)} partial transactions, {proofs} proofs, built in "
+            f"{t_build:.2f} s ({proofs / t_build:.4f} proofs/s), Transaction.execute() "
+            f"{t_exec:.2f} s, {len(result.nullifiers)} nullifiers; one flipped byte of a "
+            f"resource-logic proof refused ({refused})   [{smi}]")
+    launches = read_counts("shielded transaction", "tx")
+    log(f"launches in the three shielded flows: {launches}; in one swap leg "
+        f"({leg[1]} proofs): {leg[2]}")
+    log(f"peak device memory since phase 8 began (torch.cuda.max_memory_allocated): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB   [{smi}]")
+
+    # 8c: one swap leg's logics through the kernels and through the plain
+    # versions on the same seed (K4 on the 10- and 13-column app tapes, K1
+    # and the MSMs at k = 12), the k = 12 tables rebuilt plainly
+    flat = swap_leg_logics(seed + 30)
+    t0 = time.perf_counter()
+    kernel_twin = prove_resource_logics_batch(flat, device="cuda",
+                                              randbits=seeded_randbits(seed + 31))
+    t_kernel = time.perf_counter() - t0
+    for info in kernel_twin:
+        info.verify()
+    for c in flat:
+        get_proving_key(type(c), rk).__dict__.pop("_pipelines", None)
+    t0 = time.perf_counter()
+    with FK.plain_versions():
+        plain_twin = prove_resource_logics_batch(flat, device="cuda",
+                                                 randbits=seeded_randbits(seed + 31))
+    t_plain = time.perf_counter() - t0
+    if [i.proof.data for i in plain_twin] != [i.proof.data for i in kernel_twin]:
+        raise AssertionError("prove_resource_logics_batch on a swap leg's logics differs from its "
+                             "plain-version twin")
+    log(f"plain-version twin of one swap leg's [{', '.join(type(c).__name__ for c in flat)}]: "
+        f"kernels {t_kernel:.2f} s, plain versions {t_plain:.2f} s (tables rebuilt); "
+        f"byte-equal, every proof verifies")
+    torch.cuda.synchronize()
+    return launches, leg[2]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1256,6 +1536,7 @@ def main(argv=None) -> int:
     res = phase_kernels(pk, args.seed, dev)
     launches, native, device, proof = phase_prove(pk, args.seed)
     launches_b, stages_b, tb = phase_batch(pk, args.seed, proof)
+    launches_tx, launches_leg = phase_tx(args.seed, smi)
 
     for what, (stages, total) in (("native IPA", native), ("device IPA", device)):
         log(f"stage wall times of a warm k={K} proof, {what}, on {smi}:")
@@ -1278,6 +1559,7 @@ def main(argv=None) -> int:
         r = res[name]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[name], "launches_batch": launches_b[name],
+                     "launches_tx": launches_tx[name], "launches_leg": launches_leg[name],
                      "max_abs_err": r["err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

@@ -7,18 +7,21 @@ every kernel the JAX package wrote in Pallas. The package imports neither
 JAX nor taiga_tpu; it keeps its own copy of the host layers it needs.
 
 Layer map (the JAX package's layout and names):
-  crypto/    Pasta fields & curves, Poseidon (host, copied)
-  core/      resource data model and compliance info (host, copied); the
-             proving entry points (proving.py, ptx.py)
+  crypto/    Pasta fields & curves, Poseidon, RedDSA (host, copied)
+  core/      resource data model, compliance info, encryption, the
+             transaction and its binding signature (host, copied); the
+             proving entry points and partial transactions (proving.py,
+             ptx.py)
   circuits/  compliance circuit, resource-logic framework and their gadgets
-             (host, copied)
-  apps/      the trivial resource logic (host, copied)
+             (host, copied); the bytecode registry
+  apps/      the seven example resource logics (host, copied)
+  examples/  the three transaction flows, transparent or shielded
   native/    the C++ host engine (keygen commitments, the native IPA open,
              verification)
   ops/       limb arithmetic, NTT, fixed-base MSM, lookup sort, tape
              interpreter — each CUDA kernel beside its plain version
   plonk/     constraint system, keygen, prover (one proof, a lockstep
-             batch, the cross-batch pipeline), verifier
+             batch, the cross-batch pipeline), verifier, mock prover
 
 Entry points run on "cuda" unless the caller passes device="cpu"; asking for
 "cuda" without a card raises.

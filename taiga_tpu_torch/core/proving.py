@@ -17,6 +17,7 @@ import secrets
 import threading
 
 from ..crypto.fields import Fp
+from ..ops.limbs import resolve_device
 from .constants import (
     COMPLIANCE_CIRCUIT_PARAMS_SIZE,
     RESOURCE_LOGIC_CIRCUIT_PARAMS_SIZE,
@@ -63,7 +64,6 @@ class Proof:
     @classmethod
     def create(cls, circuit, instance: list[Fp], k: int, *, device="cuda",
                randbits=secrets.randbits) -> "Proof":
-        from ..ops.limbs import resolve_device
         from ..plonk.prover import create_proof
 
         resolve_device(device)  # before the keygen: a missing card raises at once
@@ -140,6 +140,7 @@ class ResourceLogicVerifyingInfo:
 def prove_resource_logic(circuit, *, device="cuda",
                          randbits=secrets.randbits) -> ResourceLogicVerifyingInfo:
     """Prove one resource-logic circuit instance on `device`."""
+    resolve_device(device)  # before the public inputs, which may need keygens
     instance = circuit.get_public_inputs()
     proof = Proof.create(circuit, instance, resource_logic_k(), device=device,
                          randbits=randbits)
@@ -150,30 +151,54 @@ def prove_resource_logic(circuit, *, device="cuda",
 
 def prove_resource_logics_batch(circuits, *, device="cuda",
                                 randbits=secrets.randbits) -> list[ResourceLogicVerifyingInfo]:
-    """Prove many resource-logic instances on `device`: the circuits are
-    grouped by class, and the groups go through the cross-batch pipeline
-    (plonk.prover.create_proofs_pipelined), each group's multiopen and IPA
-    tails under the next group's device stages. A group of one is a batch
-    of one, which equals prove_resource_logic's proof. Returns one
-    verifying info a circuit, in order."""
-    from ..ops.limbs import resolve_device
+    """Prove many resource-logic instances on `device`, in the reference's
+    order (taiga_tpu/core/proving.py's device path), which is the order the
+    proofs draw from `randbits` in: with one circuit or none, each alone;
+    otherwise the circuits are grouped by class, in order of first
+    appearance, each class with a single circuit is proved at once through
+    prove_resource_logic, and then the groups of two or more go through the
+    cross-batch pipeline (plonk.prover.create_proofs_pipelined), each
+    group's multiopen and IPA tails under the next group's device stages.
+    Returns one verifying info a circuit, in order."""
     from ..plonk.prover import create_proofs_pipelined
 
     resolve_device(device)  # before the keygens
     k = resource_logic_k()
+    out: list = [None] * len(circuits)
+    if len(circuits) <= 1:
+        for i, c in enumerate(circuits):
+            out[i] = prove_resource_logic(c, device=device, randbits=randbits)
+        return out
     groups: dict[type, list[int]] = {}
     for i, c in enumerate(circuits):
         groups.setdefault(type(c), []).append(i)
     jobs, job_meta = [], []
     for cls, idxs in groups.items():
+        if len(idxs) == 1:
+            out[idxs[0]] = prove_resource_logic(circuits[idxs[0]], device=device,
+                                                randbits=randbits)
+            continue
         pk = get_proving_key(cls, k)
         insts = [circuits[i].get_public_inputs() for i in idxs]
         jobs.append((pk, [circuits[i] for i in idxs], insts))
         job_meta.append((cls, pk, idxs, insts))
-    out: list = [None] * len(circuits)
     for proofs, (cls, pk, idxs, insts) in zip(
             create_proofs_pipelined(jobs, device=device, randbits=randbits), job_meta):
         vkb = pk.vk.to_bytes()
         for i, inst, pf in zip(idxs, insts, proofs):
             out[i] = ResourceLogicVerifyingInfo(cls.circuit_id(), Proof(pf), inst, vkb)
     return out
+
+
+def verify_resource_logic_transparently(circuit, *, device="cuda") -> list[Fp]:
+    """MockProver-style transparent check on `device`; returns the public
+    inputs (reference resource_logic_circuit.rs:597-606 macro)."""
+    from ..plonk.mock import MockProver
+
+    resolve_device(device)  # before the public inputs, which may need keygens
+    instance = circuit.get_public_inputs()
+    mp = MockProver.run(resource_logic_k(), circuit, instance, device=device)
+    failures = mp.verify()
+    if failures:
+        raise ProofError("; ".join(failures))
+    return instance

@@ -3,7 +3,7 @@
 Modules:
   transcript   Blake2b Fiat-Shamir transcript
   srs          IPA structured reference string (Vesta generators)
-  expression   gate polynomial AST (host evaluation, serialization)
+  expression   gate polynomial AST (host and device evaluation, serialization)
   circuit      ConstraintSystem + CircuitBuilder (keygen/prove dual mode)
   tape         constraint expressions compiled to a register-machine tape
   keygen       proving/verifying key generation (host, native engine)
@@ -11,4 +11,5 @@ Modules:
   hybrid_open  device multiopen aggregation + native IPA open
   verifier     proof verification
   ipa          inner-product-argument verification
+  mock         MockProver: gates, lookups and copies checked without proving
 """

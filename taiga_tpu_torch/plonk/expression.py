@@ -1,18 +1,25 @@
-"""Gate polynomial expressions: AST, degree tracking, serialization and
-host evaluation.
+"""Gate polynomial expressions: AST, degree tracking, serialization, host
+and device evaluation.
 
-Host half of taiga_tpu/plonk/expression.py. An Expression references cells
-of the circuit's column tables at relative rotations. The port evaluates
-expressions over whole domains on the device only through compiled tapes
-(plonk/tape.py, ops/tape_device.py), so the reference's per-node device
-evaluator has no counterpart here.
+Port of taiga_tpu/plonk/expression.py. An Expression references cells of
+the circuit's column tables at relative rotations. The prover evaluates its
+constraints over the extended domain through compiled tapes (plonk/tape.py,
+ops/tape_device.py); eval_device_many evaluates a set of expressions over
+whole-domain base tables in plain torch on the port's limb ops, on the
+device of the tables, as the MockProver's gate checks need: the nodes of
+all of them are levelled by height, and each level's sums, products and
+negations are one batched limb operation each. eval_device is the case of
+one expression.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from ..crypto.fields import Fp
+from ..ops import limbs as L
 
 FIXED = "fixed"
 ADVICE = "advice"
@@ -220,4 +227,101 @@ def eval_host(expr: Expression, row: int, n: int, fixed, advice, instance) -> in
                 * eval_host(expr.b, row, n, fixed, advice, instance)) % p
     if isinstance(expr, Negated):
         return (-eval_host(expr.a, row, n, fixed, advice, instance)) % p
+    raise TypeError(type(expr))
+
+
+# --- device evaluation (whole-domain, vectorized) ---------------------------
+
+
+class TableSet:
+    """Evaluation tables of the base domain on one torch device: dict
+    kind -> (num_cols, n, 16) int32 limbs in Montgomery form. Rotation i
+    means i rows."""
+
+    def __init__(self, fixed, advice, instance):
+        self.tables = {FIXED: fixed, ADVICE: advice, INSTANCE: instance}
+        base = fixed if fixed is not None else advice
+        self.n, self.device = base.shape[1], base.device
+        self._lm: dict = {}
+
+    def column_lm(self, kind: str, index: int) -> torch.Tensor:
+        """Column `index` of `kind` as limb-major (16, n) (the tables are
+        moved to limb-major once, on first use)."""
+        t = self._lm.get(kind)
+        if t is None:
+            t = self._lm[kind] = self.tables[kind].movedim(-1, 0).contiguous()
+        return t[:, index]
+
+
+# the most lanes (nodes x rows) one batched operation of eval_device_many
+# takes: bounds its float64 product accumulator to 32 x 2^20 x 8 B = 256 MiB
+_MAX_LANES = 1 << 20
+
+
+def eval_device(expr: Expression, ts: TableSet, challenges=None) -> torch.Tensor:
+    """Evaluate an expression over the whole domain -> (n, 16) Montgomery,
+    on the tables' device. challenges: dict name -> (16,) Montgomery limbs."""
+    return eval_device_many([expr], ts, challenges)[0]
+
+
+def eval_device_many(exprs, ts: TableSet, challenges=None) -> list[torch.Tensor]:
+    """eval_device of each expression of `exprs`, evaluated together: the
+    nodes of all of them (each node object once, however many parents share
+    it) are levelled by height, and each level's sums, products and
+    negations are each one batched limb operation over the stacked
+    operands (in pieces of at most _MAX_LANES lanes). Every lane is the
+    same field operation as a node-by-node evaluation, so the results are
+    the same bits; the launches go from one set per node to one set per
+    level and kind."""
+    n = ts.n
+    height: dict[int, int] = {}
+    levels: dict[tuple[int, type], list[Expression]] = {}
+    values: dict[int, torch.Tensor] = {}
+
+    def visit(e: Expression) -> int:
+        h = height.get(id(e))
+        if h is not None:
+            return h
+        if isinstance(e, (Sum, Product)):
+            h = 1 + max(visit(e.a), visit(e.b))
+        elif isinstance(e, Negated):
+            h = 1 + visit(e.a)
+        else:
+            h = 0
+            values[id(e)] = _leaf_lm(e, ts, challenges)
+        height[id(e)] = h
+        if h:
+            levels.setdefault((h, type(e)), []).append(e)
+        return h
+
+    for e in exprs:
+        visit(e)
+    for (_, kind), nodes in sorted(levels.items(), key=lambda kv: kv[0][0]):
+        step = max(1, _MAX_LANES // n)
+        for lo in range(0, len(nodes), step):
+            part = nodes[lo : lo + step]
+            a = torch.stack([values[id(e.a)].expand(L.NLIMBS, n) for e in part], dim=1)
+            if kind is Negated:
+                out = L.lm_sub(torch.zeros_like(a), a, L.FP)
+            else:
+                b = torch.stack([values[id(e.b)].expand(L.NLIMBS, n) for e in part], dim=1)
+                out = (L.lm_add if kind is Sum else L.lm_mul)(a, b, L.FP)
+            for j, e in enumerate(part):
+                values[id(e)] = out[:, j]
+    return [L.from_lm(values[id(e)].expand(L.NLIMBS, n)) for e in exprs]
+
+
+def _leaf_lm(expr: Expression, ts: TableSet, challenges):
+    """A leaf as limb-major (16, n), or (16, 1) where it is the same on every
+    row (a constant or a challenge)."""
+    if isinstance(expr, Cell):
+        col = ts.column_lm(expr.kind, expr.index)
+        if expr.rotation:
+            col = torch.roll(col, -expr.rotation, dims=1)
+        return col
+    if isinstance(expr, Constant):
+        limb = L.int_to_limbs(expr.value * L.FP.r % Fp.MODULUS)
+        return L.const(limb, ts.device)[:, None]
+    if isinstance(expr, ChallengeVar):
+        return challenges[expr.name].reshape(L.NLIMBS, 1)
     raise TypeError(type(expr))
