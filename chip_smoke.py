@@ -90,7 +90,30 @@ exit code and no result line:
      prove_resource_logics_batch on one swap leg's [token, signature
      verification, token, receiver] through the kernels and through the
      plain versions on the card, byte-equal (K4 on the 10- and 13-column
-     app tapes, K1 and the MSMs at k = 12).
+     app tapes, K1 and the MSMs at k = 12);
+  9. (run after 8) the node-facing surface: (a) the pyth Vamp-IR program of
+     tests/test_vamp_ir.py as a resource logic at k = 12: its key (loaded
+     from the disk cache or generated) and its device tables, timed; a cold
+     proof through ResourceLogicByteCode("vamp_ir", ...).generate_proof;
+     then one decoded circuit proved warm (launch counts zeroed just before,
+     read just after) and through the plain versions on the card under the
+     same seed, byte-equal (K4 on a new tape, K1 and the MSMs); each proof
+     verifies against its carried vk and is refused with its first public
+     input changed; (b) `python -m taiga_tpu_torch.service` as a child
+     process with pipes, as a node starts it, timed from the spawn to its
+     first PING reply, then fed {packet, 4} frames: a resource's round
+     trip; phase 8's three shielded transactions, whose replies' anchors,
+     nullifiers and commitments must equal execute() in this process; the
+     three-party swap with one proof byte flipped (an error packet, and the
+     next request still answered); each of its partial transactions; the
+     transparent three-party swap of 8a composed by CREATE_TRANSACTION and
+     verified (the child's mock prover on the card), with 8a's results; an
+     unknown opcode (an error packet); its input closed, it must exit 0.
+     Every request is timed. (c) the compliance key and the Vamp-IR key:
+     whether this process loaded them from .pk_cache_torch/ or generated and
+     stored them (a second run on one tree loads them), then a child
+     process loads both with keygen forbidden; their verifying keys must
+     equal this process's.
 
 Usage: python3 chip_smoke.py [--seed 7]
 Needs one CUDA device and the CUDA toolkit (nvcc); imports nothing of JAX.
@@ -102,6 +125,7 @@ import argparse
 import json
 import os
 import random
+import struct
 import subprocess
 import sys
 import time
@@ -907,23 +931,24 @@ KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device",
     # "batch": a lockstep batch or the pipeline, which open natively; "tx":
-    # the shielded transaction flows of phase 8)
+    # the shielded transaction flows of phase 8; "vamp_ir": phase 9's
+    # Vamp-IR logic proof)
     ("mont_mul", "mont_mul_lm", "taiga_tpu_torch/csrc/mont_mul.cu",
-     "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch", "tx")),
+     "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch", "tx", "vamp_ir")),
     ("ec_add_proj", "ec_add_proj_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device", "batch", "tx")),
+     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device", "batch", "tx", "vamp_ir")),
     # K3's rounds on both paths go through ec_seg_rounds, its chained form
     ("ec_add_proj_sel", "ec_add_proj_sel_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
      "taiga_tpu/ops/ff_kernels.py:511", ()),
     # K3 chained: the segmented rounds over K3 of the MSMs' bucket passes
     ("ec_seg_rounds", "ec_seg_rounds_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:74-90", ("native", "device", "batch", "tx")),
+     "taiga_tpu/ops/msm.py:74-90", ("native", "device", "batch", "tx", "vamp_ir")),
     # K2 chained: the scan over K2 that combines an MSM's windows (and its
     # bit Horner, :158-173)
     ("ec_horner", "ec_horner_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:417-424", ("native", "device", "batch", "tx")),
+     "taiga_tpu/ops/msm.py:417-424", ("native", "device", "batch", "tx", "vamp_ir")),
     ("tape_eval", "tape_eval_lm", "taiga_tpu_torch/csrc/tape_eval.cu",
-     "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch", "tx")),
+     "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch", "tx", "vamp_ir")),
     ("ec_fold_shared", "ec_fold_shared_lm", "taiga_tpu_torch/csrc/ec_fold_shared.cu",
      "taiga_tpu/ops/ff_kernels.py:623", ("device",)),
     ("ec_add", "ec_add_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
@@ -946,7 +971,7 @@ def zero_counts():
 
 def read_counts(what: str, path: str) -> dict:
     """The launch counts since zero_counts(); fails if a kernel of the path
-    ("native" or "device" IPA, "batch", "tx") was never launched."""
+    ("native" or "device" IPA, "batch", "tx", "vamp_ir") was never launched."""
     counts = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
     for name, _, _, _, paths in KERNELS:
         if path in paths and counts[name] == 0:
@@ -1358,7 +1383,8 @@ def phase_tx(seed: int, smi: str):
     each executed, one tampered proof refused, timed by partial
     transaction; (c) prove_resource_logics_batch on one swap leg's logics
     against its plain-version twin. Returns the launches of (b) and of its
-    first partial transaction (one swap leg)."""
+    first partial transaction (one swap leg), and each flow's transparent
+    and shielded transaction with its execute() result, by flow name."""
     import torch
     from taiga_tpu_torch.apps import (
         OrRelationIntentResourceLogicCircuit, PartialFulfillmentIntentResourceLogicCircuit,
@@ -1394,13 +1420,14 @@ def phase_tx(seed: int, smi: str):
     # its nullifiers and output commitments come from the host, so the mock's
     # device work is held by mock_twin: its gate masks and failure lists on
     # the card against the CPU, satisfied and broken, one logic of each class
-    mocked = {}
+    mocked, transparent, shielded = {}, {}, {}
     for i, (name, fn) in enumerate(FLOWS):
         flow = getattr(X, fn)
         t0 = time.perf_counter()
         tx = flow(random.Random(seed + i), mode="transparent", device="cuda")
         got = tx.execute()
         t_gpu = time.perf_counter() - t0
+        transparent[name] = (tx, got)
         threads = torch.get_num_threads()
         torch.set_num_threads(CPU_THREADS)
         try:
@@ -1457,6 +1484,7 @@ def phase_tx(seed: int, smi: str):
         t0 = time.perf_counter()
         result = tx.execute()
         t_exec = time.perf_counter() - t0
+        shielded[name] = (tx, result)
         info = tx.shielded_ptx_bundle.partial_txs[0].inputs[0].app_resource_logic_verifying_info
         good = info.proof
         data = bytearray(good.data)
@@ -1509,7 +1537,325 @@ def phase_tx(seed: int, smi: str):
         f"kernels {t_kernel:.2f} s, plain versions {t_plain:.2f} s (tables rebuilt); "
         f"byte-equal, every proof verifies")
     torch.cuda.synchronize()
-    return launches, leg[2]
+    return launches, leg[2], transparent, shielded
+
+
+# --- phase 9: the node-facing surface ----------------------------------------
+
+PYTH = """
+// declare R to be public
+pub R;
+
+// define the Pythagorean relation we are checking
+def pyth a b c = {
+  a^2 + b^2 = c^2
+};
+
+// appends constraint x^2 + y^2 = R^2 to the circuit
+pyth x y R;
+"""  # tests/test_vamp_ir.py's program (the reference's vamp_ir_circuits/pyth.pir)
+PYTH_WITNESS = {"x": 15, "y": 20, "R": 25}
+SERVICE_TIMEOUT = 600  # seconds the service child may live before it is killed
+
+
+def key_source(cls, k: int) -> str:
+    """Whether get_proving_key will load the key of cls at 2^k from the
+    disk cache or generate and store it (read before the call)."""
+    from taiga_tpu_torch.core.proving import pk_cache_path
+
+    path = pk_cache_path(cls, k)
+    return ("loaded from .pk_cache_torch/" if path and os.path.exists(path)
+            else "generated and stored in .pk_cache_torch/")
+
+
+def refuse_changed_input(info, what: str):
+    """A resource-logic verifying info must fail with its first public
+    input changed."""
+    from taiga_tpu_torch.core.error import ProofError
+    from taiga_tpu_torch.core.proving import ResourceLogicVerifyingInfo
+    from taiga_tpu_torch.crypto.fields import Fp
+
+    bad = ResourceLogicVerifyingInfo(info.circuit_id, info.proof,
+                                     [Fp(info.public_inputs[0].v + 1)] + info.public_inputs[1:],
+                                     info.vk_bytes)
+    try:
+        bad.verify()
+    except ProofError:
+        return
+    raise AssertionError(f"the {what} verifies with its first public input changed")
+
+
+def phase_vamp_ir(seed: int, smi: str):
+    """Phase 9a: the pyth Vamp-IR program as a resource logic at k = 12 on
+    the card: its key and device tables, a cold proof through
+    ResourceLogicByteCode("vamp_ir", ...).generate_proof, then one decoded
+    circuit proved warm (launches counted) and through the plain versions
+    under one seed, byte-equal. Each proof verifies against its carried vk
+    and is refused with its first public input changed. Each decode draws a
+    new padding seed (a new statement), so the twin proves the one decoded
+    circuit twice. Returns the warm proof's launches and the key's class,
+    how it was had and its time."""
+    import torch
+    from taiga_tpu_torch.circuits.bytecode import ResourceLogicByteCode
+    from taiga_tpu_torch.circuits.vamp_ir import VampIRResourceLogicCircuit
+    from taiga_tpu_torch.core.proving import get_proving_key, prove_resource_logic, resource_logic_k
+    from taiga_tpu_torch.ops import ff_kernels as FK
+    from taiga_tpu_torch.plonk.prover import get_pipeline
+
+    rk = resource_logic_k()
+    bc = ResourceLogicByteCode(
+        "vamp_ir", VampIRResourceLogicCircuit.for_source(PYTH)(PYTH_WITNESS).to_bytes())
+    circuit = bc.decode()
+    cls = type(circuit)
+    source = key_source(cls, rk)
+    t0 = time.perf_counter()
+    pk = get_proving_key(cls, rk)
+    t_key = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    get_pipeline(pk, "cuda").prepare()
+    torch.cuda.synchronize()
+    cs = pk.vk.cs
+    log(f"Vamp-IR logic {cls.__name__} (pyth) k={rk}: key {source} in {t_key:.2f} s (host); "
+        f"its device tables {time.perf_counter() - t0:.2f} s; {cs.num_fixed} fixed and "
+        f"{cs.num_advice} advice columns, {len(cs.gates)} gates, {len(cs.lookups)} lookups, "
+        f"{len(pk.vk.perm_cols)} permutation columns   [{smi}]")
+
+    t0 = time.perf_counter()
+    cold = bc.generate_proof(device="cuda", randbits=seeded_randbits(seed))
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    warm = prove_resource_logic(circuit, device="cuda", randbits=seeded_randbits(seed + 1))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    launches = read_counts("Vamp-IR", "vamp_ir")
+    for what, info in (("cold", cold), ("warm", warm)):
+        if info.circuit_id != cls.circuit_id() or info.public_inputs[0].v != PYTH_WITNESS["R"]:
+            raise AssertionError(f"the {what} Vamp-IR proof carries {info.circuit_id} and R = "
+                                 f"{info.public_inputs[0].v}")
+        info.verify()
+        refuse_changed_input(info, f"{what} Vamp-IR proof")
+    pk.__dict__.pop("_pipelines", None)  # the twin rebuilds the tables plainly
+    t0 = time.perf_counter()
+    with FK.plain_versions():
+        plain = prove_resource_logic(circuit, device="cuda", randbits=seeded_randbits(seed + 1))
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if plain.proof.data != warm.proof.data:
+        raise AssertionError("the Vamp-IR proof differs from its plain-version twin")
+    log(f"Vamp-IR proof ({len(warm.proof.data)} bytes): cold through the bytecode {t_cold:.2f} s, "
+        f"warm {t_warm:.2f} s, plain-version twin {t_plain:.2f} s (tables rebuilt); byte-equal, "
+        f"each verifies against its carried vk and is refused with R changed; launches of the "
+        f"warm proof: {launches}   [{smi}]")
+    return launches, (cls, rk, source, t_key)
+
+
+class ServiceChild:
+    """`python -m taiga_tpu_torch.service` as a child process with pipes,
+    as a node starts it; killed if it outlives SERVICE_TIMEOUT."""
+
+    def __init__(self):
+        import tempfile
+        import threading
+
+        self.err = tempfile.TemporaryFile()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "taiga_tpu_torch.service"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err)
+        self.watchdog = threading.Timer(SERVICE_TIMEOUT, self.proc.kill)
+        self.watchdog.start()
+
+    def _read(self, n: int) -> bytes:
+        data = self.proc.stdout.read(n)
+        if len(data) != n:
+            self.err.seek(0)
+            tail = self.err.read().decode(errors="replace")[-2000:]
+            raise AssertionError(f"the service closed its output (exit {self.proc.poll()}): {tail}")
+        return data
+
+    def call(self, packet: bytes) -> tuple[int, bytes, float]:
+        """One {packet, 4} request: (status, payload, wall seconds)."""
+        t0 = time.perf_counter()
+        self.proc.stdin.write(struct.pack(">I", len(packet)) + packet)
+        self.proc.stdin.flush()
+        (n,) = struct.unpack(">I", self._read(4))
+        reply = self._read(n)
+        if not reply:
+            raise AssertionError("the service sent an empty reply")
+        return reply[0], reply[1:], time.perf_counter() - t0
+
+    def close(self) -> int:
+        """Close its input, as a node closes the port; its exit code."""
+        self.proc.stdin.close()
+        try:
+            return self.proc.wait(timeout=60)
+        finally:
+            self.stop()
+
+    def stop(self):
+        self.watchdog.cancel()
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+
+
+def result_groups(payload: bytes) -> list[list[bytes]]:
+    """A VERIFY_TRANSACTION reply: anchors, nullifiers and output
+    commitments, 32 bytes each."""
+    import io
+
+    r = io.BytesIO(payload)
+    groups = []
+    for _ in range(3):
+        (n,) = struct.unpack("<I", r.read(4))
+        groups.append([r.read(32) for _ in range(n)])
+    if r.read():
+        raise AssertionError("trailing bytes after a transaction result")
+    return groups
+
+
+def expected_groups(result) -> list[list[bytes]]:
+    return [[v.to_bytes() for v in group]
+            for group in (result.anchors, result.nullifiers, result.output_cms)]
+
+
+def phase_service(smi: str, transparent: dict, shielded: dict):
+    """Phase 9b: the service as a node runs it, fed phase 8's transactions
+    in {packet, 4} frames: PING, a resource's round trip, the three
+    shielded transactions (results equal to the in-process execute()), the
+    three-party swap with one proof byte flipped (an error packet, and the
+    next request answered), each of its partial transactions, the
+    transparent swap composed by CREATE_TRANSACTION and verified with the
+    mock prover on the card, and an unknown opcode; then its input closed,
+    it must exit 0. Every request is timed."""
+    from taiga_tpu_torch import service as S
+    from taiga_tpu_torch.core import api, wire
+    from taiga_tpu_torch.core.proving import Proof
+
+    OK, ERR = S.STATUS_OK, S.STATUS_ERROR
+
+    def expect(status, payload, want_status, what):
+        if status != want_status:
+            raise AssertionError(f"service, {what}: status {status}, wanted {want_status}: "
+                                 f"{payload[:300]!r}")
+
+    t_spawn = time.perf_counter()
+    child = ServiceChild()
+    try:
+        status, payload, _ = child.call(bytes([S.OP_PING]) + b"taiga")
+        expect(status, payload, OK, "PING")
+        if payload != b"taiga":
+            raise AssertionError(f"service, PING: echoed {payload!r}")
+        log(f"service: python -m taiga_tpu_torch.service answered its first PING "
+            f"{time.perf_counter() - t_spawn:.2f} s after the spawn   [{smi}]")
+
+        def request(what, op, body, want_status=OK):
+            status, payload, sec = child.call(bytes([op]) + body)
+            expect(status, payload, want_status, what)
+            log(f"  {what}: {'ok' if status == OK else 'error packet'} in {sec:.3f} s "
+                f"({len(body)} bytes in, {len(payload)} out)   [{smi}]")
+            return payload
+
+        swap_tx, swap_result = transparent["three-party swap"]
+        res = swap_tx.transparent_ptx_bundle.partial_txs[0].compliances[0].input_resource
+        if request("RESOURCE_ROUNDTRIP", S.OP_RESOURCE_ROUNDTRIP, res.serialize()) != \
+                res.serialize():
+            raise AssertionError("service: the resource did not come back unchanged")
+        for name, (tx, result) in shielded.items():
+            got = result_groups(request(f"VERIFY_TRANSACTION shielded {name}",
+                                        S.OP_VERIFY_TRANSACTION, api.transaction_serialize(tx)))
+            if got != expected_groups(result):
+                raise AssertionError(f"service: the shielded {name}'s anchors, nullifiers or "
+                                     f"commitments differ from execute() in this process")
+        tx = shielded["three-party swap"][0]
+        info = tx.shielded_ptx_bundle.partial_txs[0].inputs[0].app_resource_logic_verifying_info
+        good = info.proof
+        data = bytearray(good.data)
+        data[64] ^= 1
+        info.proof = Proof(bytes(data))
+        try:
+            tampered = api.transaction_serialize(tx)
+        finally:
+            info.proof = good
+        request("VERIFY_TRANSACTION shielded three-party swap, one proof byte flipped",
+                S.OP_VERIFY_TRANSACTION, tampered, want_status=ERR)
+        for j, ptx in enumerate(tx.shielded_ptx_bundle.partial_txs):
+            if request(f"VERIFY_SHIELDED_PTX three-party swap, partial transaction {j}",
+                       S.OP_VERIFY_SHIELDED_PTX, wire.shielded_ptx_serialize(ptx)):
+                raise AssertionError("service: VERIFY_SHIELDED_PTX answered a payload")
+        ptxs = [api.partial_transaction_serialize(p)
+                for p in swap_tx.transparent_ptx_bundle.partial_txs]
+        body = struct.pack("<I", len(ptxs)) + b"".join(struct.pack("<I", len(p)) + p for p in ptxs)
+        t0 = time.perf_counter()
+        created = request("CREATE_TRANSACTION transparent three-party swap",
+                          S.OP_CREATE_TRANSACTION, body)
+        got = result_groups(request("VERIFY_TRANSACTION transparent three-party swap (mock "
+                                    "prover on the card)", S.OP_VERIFY_TRANSACTION, created))
+        log(f"  transparent three-party swap, CREATE + VERIFY: {time.perf_counter() - t0:.3f} s"
+            f"   [{smi}]")
+        if got != expected_groups(swap_result):
+            raise AssertionError("service: the transparent swap's anchors, nullifiers or "
+                                 "commitments differ from phase 8a's")
+        request("unknown opcode 0x7f", 0x7F, b"", want_status=ERR)
+        code = child.close()
+    finally:
+        child.stop()
+    if code != 0:
+        raise AssertionError(f"the service exited with {code} when its input closed")
+    log(f"service: every request answered as expected; exit 0 when its input closed; "
+        f"{time.perf_counter() - t_spawn:.2f} s from the spawn   [{smi}]")
+
+
+def phase_key_cache(keys, smi: str):
+    """Phase 9c: how this process had its keys (loaded from the disk cache
+    or generated and stored), then a child process loads them from the
+    disk cache, keygen forbidden: each vk's SHA-256 must equal this
+    process's."""
+    import hashlib
+
+    from taiga_tpu_torch.core.proving import get_proving_key
+
+    want = {}
+    for label, (cls, k, source, sec) in keys.items():
+        want[label] = hashlib.sha256(get_proving_key(cls, k).vk.to_bytes()).hexdigest()
+        log(f"key cache: {label} (k={k}) {source} in {sec:.2f} s in this process")
+    code = f"""
+import hashlib, json, time
+from taiga_tpu_torch.core import proving as PR
+from taiga_tpu_torch.plonk import keygen as KG
+
+def no_keygen(*a, **kw):
+    raise AssertionError("a keygen ran: the key was not loaded from the disk cache")
+
+KG.keygen = no_keygen
+from taiga_tpu_torch.circuits.compliance import ComplianceCircuit
+from taiga_tpu_torch.circuits.vamp_ir import VampIRResourceLogicCircuit
+out = {{}}
+for label, cls, k in (("compliance", ComplianceCircuit, {K}),
+                      ("vamp_ir", VampIRResourceLogicCircuit.for_source({PYTH!r}),
+                       PR.resource_logic_k())):
+    t0 = time.perf_counter()
+    pk = PR.get_proving_key(cls, k)
+    out[label] = [hashlib.sha256(pk.vk.to_bytes()).hexdigest(), time.perf_counter() - t0]
+print(json.dumps(out))
+"""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"the key-cache child exited with {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for label, digest in want.items():
+        if got[label][0] != digest:
+            raise AssertionError(f"key cache: the child's {label} vk differs from this process's")
+        log(f"key cache: a child process loaded the {label} key from .pk_cache_torch/ in "
+            f"{got[label][1]:.3f} s (this process: {keys[label][2]} in {keys[label][3]:.2f} s); "
+            f"vk SHA-256 {digest[:16]}... equal   [{smi}]")
+    log(f"key cache: the child took {time.perf_counter() - t0:.2f} s in all (torch import included)")
 
 
 def main(argv=None) -> int:
@@ -1529,14 +1875,22 @@ def main(argv=None) -> int:
     kind, smi = phase_device()
     phase_build()
     log(json.dumps({"kernels": [name for name, _, _, _, _ in KERNELS]}))
+    from taiga_tpu_torch.circuits.compliance import ComplianceCircuit
+
+    source = key_source(ComplianceCircuit, K)
     t0 = time.perf_counter()
     pk = T.compliance_proving_key(K)
-    log(f"compliance keygen k={K} (host, native engine): {time.perf_counter() - t0:.2f} s")
+    t_key = time.perf_counter() - t0
+    log(f"compliance key k={K} (host, native engine): {source} in {t_key:.2f} s")
     dev = torch.device("cuda")
     res = phase_kernels(pk, args.seed, dev)
     launches, native, device, proof = phase_prove(pk, args.seed)
     launches_b, stages_b, tb = phase_batch(pk, args.seed, proof)
-    launches_tx, launches_leg = phase_tx(args.seed, smi)
+    launches_tx, launches_leg, transparent, shielded = phase_tx(args.seed, smi)
+    launches_vir, vir_key = phase_vamp_ir(args.seed + 40, smi)
+    phase_service(smi, transparent, shielded)
+    phase_key_cache({"compliance": (ComplianceCircuit, K, source, t_key), "vamp_ir": vir_key},
+                    smi)
 
     for what, (stages, total) in (("native IPA", native), ("device IPA", device)):
         log(f"stage wall times of a warm k={K} proof, {what}, on {smi}:")
@@ -1560,6 +1914,7 @@ def main(argv=None) -> int:
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": launches[name], "launches_batch": launches_b[name],
                      "launches_tx": launches_tx[name], "launches_leg": launches_leg[name],
+                     "launches_vamp_ir": launches_vir[name],
                      "max_abs_err": r["err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],

@@ -9,11 +9,12 @@ JAX nor taiga_tpu; it keeps its own copy of the host layers it needs.
 Layer map (the JAX package's layout and names):
   crypto/    Pasta fields & curves, Poseidon, RedDSA (host, copied)
   core/      resource data model, compliance info, encryption, the
-             transaction and its binding signature (host, copied); the
-             proving entry points and partial transactions (proving.py,
-             ptx.py)
-  circuits/  compliance circuit, resource-logic framework and their gadgets
-             (host, copied); the bytecode registry
+             transaction and its binding signature, the wire format and
+             the public API (host, copied); the proving entry points, the
+             proving-key cache (memory and .pk_cache_torch/) and partial
+             transactions (proving.py, ptx.py)
+  circuits/  compliance circuit, resource-logic framework and their gadgets,
+             the Vamp-IR compiler (host, copied); the bytecode registry
   apps/      the seven example resource logics (host, copied)
   examples/  the three transaction flows, transparent or shielded
   native/    the C++ host engine (keygen commitments, the native IPA open,
@@ -22,6 +23,8 @@ Layer map (the JAX package's layout and names):
              interpreter — each CUDA kernel beside its plain version
   plonk/     constraint system, keygen, prover (one proof, a lockstep
              batch, the cross-batch pipeline), verifier, mock prover
+  service.py the Erlang-Port service an Anoma node drives
+             (`python -m taiga_tpu_torch.service`, {packet, 4} frames)
 
 Entry points run on "cuda" unless the caller passes device="cpu"; asking for
 "cuda" without a card raises.

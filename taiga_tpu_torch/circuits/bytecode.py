@@ -8,9 +8,10 @@ a ResourceLogicByteCode names a registered circuit representation plus its
 serialized witness inputs; ApplicationByteCode couples the application logic
 with up to MAX_DYNAMIC_RESOURCE_LOGIC_NUM dynamic logics. The registry maps
 representation names to circuit classes (the reference enumerates them as an
-enum; a JSON-able name registry is the extensible equivalent — the VampIR arm
-is represented by the generic "bytecode circuit IR" entry, deferred per
-SURVEY.md §7 non-goals).
+enum; a JSON-able name registry is the extensible equivalent). The modules
+that register circuits (apps/ and circuits/vamp_ir.py) are imported on the
+first lookup that misses, so every declared arm with a circuit decodes in
+any process, whatever it imported first.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ _REGISTRY: dict[str, type] = {}
 # raise InvalidResourceLogicRepresentation on decode, exactly like the
 # reference's catch-all arm.
 DECLARED_REPRESENTATIONS = (
-    "vamp_ir",  # the reference's VampIR(Vec<u8>) arm; no circuit in the port yet
+    "vamp_ir",  # the reference's VampIR(Vec<u8>) arm; registered in vamp_ir.py
     "Trivial",
     "Token",
     "SignatureVerification",
@@ -59,8 +60,18 @@ def register_resource_logic(name: str):
     return deco
 
 
+def _load_registrations():
+    """Import the modules whose classes register themselves: the apps and
+    the Vamp-IR circuit."""
+    from .. import apps  # noqa: F401
+    from . import vamp_ir  # noqa: F401
+
+
 def circuit_class_by_name(name: str) -> type:
     cls = _REGISTRY.get(name)
+    if cls is None:
+        _load_registrations()
+        cls = _REGISTRY.get(name)
     if cls is None:
         raise InvalidResourceLogicRepresentation(name)
     return cls
@@ -74,6 +85,7 @@ def circuit_class_by_id(circuit_id: str) -> type:
 
 
 def registered_names() -> list[str]:
+    _load_registrations()
     return sorted(_REGISTRY)
 
 

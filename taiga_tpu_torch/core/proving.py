@@ -2,10 +2,16 @@
 
 Port of taiga_tpu/core/proving.py's entry points for the prover on the
 device. Every circuit class keygens once per (class, k) on the native
-engine and is cached in memory (the reference re-keygens a proving key per
-resource-logic proof, taiga_halo2 constant.rs:6146); there is no disk cache.
-Every proof runs on `device`, "cuda" unless the caller passes "cpu"; there
-is no host-prover dispatch: on the CPU the port runs its plain versions.
+engine (the reference re-keygens a proving key per resource-logic proof,
+taiga_halo2 constant.rs:6146); the key is cached in memory and pickled to
+`.pk_cache_torch/` at the repo root, so a later process loads it instead.
+The disk key names the class, k, a digest of every port source that shapes
+a key (circuits/, plonk/, crypto/, apps/, core/constants.py and the native
+engine, whose commitments a key holds) and a digest of the file that
+defines the class. The device tables (plonk.prover.ProverPipeline) are not
+part of the key. Every proof runs on `device`, "cuda" unless the caller
+passes "cpu"; there is no host-prover dispatch: on the CPU the port runs
+its plain versions.
 
 `Proof` wraps raw transcript bytes (reference src/proof.rs). Verifying info
 structs bundle proof + public inputs per circuit, as in shielded_ptx.rs.
@@ -13,8 +19,13 @@ structs bundle proof + public inputs per circuit, as in shielded_ptx.rs.
 
 from __future__ import annotations
 
+import hashlib
+import os
+import pickle
 import secrets
+import sys
 import threading
+import warnings
 
 from ..crypto.fields import Fp
 from ..ops.limbs import resolve_device
@@ -38,18 +49,109 @@ def resource_logic_k() -> int:
 
 _PK_CACHE: dict = {}
 _PK_LOCK = threading.Lock()
+_PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_PK_DIR = os.path.join(os.path.dirname(_PKG_ROOT), ".pk_cache_torch")
+_SRC_CLOSURE_DIGEST: str | None = None
+
+
+def _closure_digest(root: str) -> str:
+    """Digest of the sources under the package root `root` that can shape a
+    proving key: the circuits and the gadget library, the plonk layout and
+    keygen, the fields and curves, the apps, the shared constants, and the
+    native engine that commits the fixed and permutation columns (its Python
+    wrapper and its C++ source)."""
+    paths = [os.path.join(root, "core", "constants.py")]
+    for sub, ext in (("circuits", ".py"), ("plonk", ".py"), ("crypto", ".py"), ("apps", ".py"),
+                     ("native", ".py"), (os.path.join("native", "src"), ".cpp")):
+        d = os.path.join(root, sub)
+        paths += [os.path.join(d, f) for f in os.listdir(d) if f.endswith(ext)]
+    h = hashlib.blake2b(digest_size=16)
+    for p in sorted(paths):
+        with open(p, "rb") as f:
+            h.update(os.path.relpath(p, root).encode())
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _source_closure_digest() -> str:
+    """The port's _closure_digest, computed once a process."""
+    global _SRC_CLOSURE_DIGEST
+    if _SRC_CLOSURE_DIGEST is None:
+        _SRC_CLOSURE_DIGEST = _closure_digest(_PKG_ROOT)
+    return _SRC_CLOSURE_DIGEST
+
+
+def _defining_file_digest(circuit_cls) -> str | None:
+    """Digest of the file that defines the class, or None where the class
+    has no source file."""
+    path = getattr(sys.modules.get(circuit_cls.__module__), "__file__", None)
+    if not path or not os.path.isfile(path):
+        return None
+    with open(path, "rb") as f:
+        return hashlib.blake2b(f.read(), digest_size=16).hexdigest()
+
+
+def pk_cache_path(circuit_cls, k: int) -> str | None:
+    """The file in which the disk cache keeps the proving key of a circuit
+    class at domain 2^k, or None where the class has no source file (its key
+    is then kept in memory only). The file's name hashes the class's module
+    and qualified name, k, the port's source closure and the defining file."""
+    file_digest = _defining_file_digest(circuit_cls)
+    if file_digest is None:
+        return None
+    key = (circuit_cls.__module__, circuit_cls.__qualname__, k, _source_closure_digest(),
+           file_digest)
+    h = hashlib.blake2b(repr(key).encode(), digest_size=16).hexdigest()
+    return os.path.join(_PK_DIR, f"pk_{h}.pkl")
+
+
+def _pk_load(path: str, k: int):
+    """The key stored at path, or None if there is none or it does not load
+    as a proving key at domain 2^k."""
+    from ..plonk.keygen import ProvingKey
+
+    try:
+        with open(path, "rb") as f:
+            pk = pickle.load(f)
+    except Exception:  # noqa: BLE001 — missing, truncated or corrupt: regenerate
+        return None
+    return pk if isinstance(pk, ProvingKey) and pk.vk.k == k else None
+
+
+def _pk_store(path: str, pk):
+    """Write the key to a file of this process and thread, then move it into
+    place: concurrent writers of one key each leave a whole file."""
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(tmp, "wb") as f:
+            pickle.dump(pk, f, protocol=pickle.HIGHEST_PROTOCOL)
+        os.replace(tmp, path)
+    except (OSError, pickle.PicklingError, TypeError, AttributeError) as e:
+        warnings.warn(f"proving key not stored in the disk cache: {e!r}")
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
 
 
 def get_proving_key(circuit_cls, k: int):
-    """The proving key of a circuit class at domain 2^k: host keygen on the
-    native engine, cached in memory per (class, k)."""
+    """The proving key of a circuit class at domain 2^k, from memory, else
+    from the disk cache (pk_cache_path), else by host keygen on the native
+    engine, then kept in both."""
     key = (circuit_cls.__module__, circuit_cls.__qualname__, k)
     with _PK_LOCK:
         pk = _PK_CACHE.get(key)
         if pk is None:
-            from ..plonk.keygen import keygen
+            path = pk_cache_path(circuit_cls, k)
+            pk = None if path is None else _pk_load(path, k)
+            if pk is None:
+                from ..plonk.keygen import keygen
 
-            pk = _PK_CACHE[key] = keygen(circuit_cls(), k)
+                pk = keygen(circuit_cls(), k)
+                if path is not None:
+                    _pk_store(path, pk)
+            _PK_CACHE[key] = pk
     return pk
 
 
