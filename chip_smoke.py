@@ -114,6 +114,34 @@ exit code and no result line:
      stored them (a second run on one tree loads them), then a child
      process loads both with keygen forbidden; their verifying keys must
      equal this process's.
+ 10. (run after 9) the last modules: (a) the group law of ops/ec.py at
+     4,096 lanes, on both fields, with identity, P = Q and P = -Q lanes:
+     ec_add (K6), ec_double (the doubling kernel) and ec_scalar_mul_shared
+     (K7 and the doubling, 255 steps) against their plain versions bit for
+     bit and the host group law on sampled lanes; K6, K7 and the doubling
+     timed at the widths of their main path, (f)'s bitserial MSM, and the
+     ladder timed; (b) the list-based IPA open (host-int coefficients,
+     opened by ipa_open_device) of a random polynomial at k = 13, whose
+     bytes must equal ipa_open_device's and ipa_open_native's under one
+     seed, verified and refused with a0 changed, timed, with its launches
+     counted (zeroed just before, read after: the "ipa_list" path);
+     multiopen_open_device is the hybrid multiopen with the device open,
+     which phase 5's device-IPA proof runs; (d) the Poseidon kernel at
+     16,384 states against its plain version and the host permutation,
+     timed (permutations per second), then hash_n_batch at (4,096, 8) and
+     merkle_root of 2^14 leaves against the host hash (the "poseidon"
+     path); (e) the compliance key's fixed and sigma columns committed on
+     the card (keygen.commit_columns) against the host engine's keygen,
+     verifying keys equal, both timed; (f) the sharded
+     layer at world 1 over NCCL in this process: sharded_msm_multi
+     (Pippenger and the bitserial K7 ladder), ntt_mesh at k = 13,
+     batch_hash_step, sharded_point_sum and prove_step against their
+     unsharded counterparts, and a grouped create_proofs_batch of 2
+     compliance proofs against the ungrouped batch byte for byte (the
+     "parallel" path). World 1 runs the collectives but moves nothing
+     between devices. The kernels line's "launches" is the count of each
+     kernel's main path (its first path in KERNELS: phase 5's proof, or
+     phase 10's), with every path's count beside it.
 
 Usage: python3 chip_smoke.py [--seed 7]
 Needs one CUDA device and the CUDA toolkit (nvcc); imports nothing of JAX.
@@ -167,6 +195,8 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "ec_horner": ("k_ec_horner",),
     "ec_add": ("k_ec_add_jac<false>", "k_ec_add_jacILb0E"),
     "ec_add_select": ("k_ec_add_jac<true>", "k_ec_add_jacILb1E"),
+    "ec_double": ("k_ec_double_jac",),
+    "poseidon": ("k_poseidon_permute",),
 }
 
 
@@ -932,36 +962,46 @@ KERNELS = [
     # path launches it ("native": the native IPA open, "device": ipa="device",
     # "batch": a lockstep batch or the pipeline, which open natively; "tx":
     # the shielded transaction flows of phase 8; "vamp_ir": phase 9's
-    # Vamp-IR logic proof)
+    # Vamp-IR logic proof; phase 10's "ipa_list": the list-based IPA open,
+    # "poseidon": hash_n_batch and merkle_root, "parallel": the sharded
+    # layer at world 1)
     ("mont_mul", "mont_mul_lm", "taiga_tpu_torch/csrc/mont_mul.cu",
      "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch", "tx", "vamp_ir")),
     ("ec_add_proj", "ec_add_proj_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/ff_kernels.py:547", ("native", "device", "batch", "tx", "vamp_ir")),
+     "taiga_tpu/ops/ff_kernels.py:547",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list")),
     # K3's rounds on both paths go through ec_seg_rounds, its chained form
     ("ec_add_proj_sel", "ec_add_proj_sel_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/ff_kernels.py:511", ()),
+     "taiga_tpu/ops/ff_kernels.py:511", ("parallel",)),
     # K3 chained: the segmented rounds over K3 of the MSMs' bucket passes
     ("ec_seg_rounds", "ec_seg_rounds_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:74-90", ("native", "device", "batch", "tx", "vamp_ir")),
+     "taiga_tpu/ops/msm.py:74-90",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list")),
     # K2 chained: the scan over K2 that combines an MSM's windows (and its
     # bit Horner, :158-173)
     ("ec_horner", "ec_horner_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
-     "taiga_tpu/ops/msm.py:417-424", ("native", "device", "batch", "tx", "vamp_ir")),
+     "taiga_tpu/ops/msm.py:417-424",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list")),
     ("tape_eval", "tape_eval_lm", "taiga_tpu_torch/csrc/tape_eval.cu",
      "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch", "tx", "vamp_ir")),
     ("ec_fold_shared", "ec_fold_shared_lm", "taiga_tpu_torch/csrc/ec_fold_shared.cu",
-     "taiga_tpu/ops/ff_kernels.py:623", ("device",)),
+     "taiga_tpu/ops/ff_kernels.py:623", ("device", "ipa_list")),
     ("ec_add", "ec_add_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
-     "taiga_tpu/ops/ff_kernels.py:483", ()),
+     "taiga_tpu/ops/ff_kernels.py:483", ("parallel",)),
     ("ec_add_select", "ec_add_select_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
-     "taiga_tpu/ops/ff_kernels.py:448", ()),
+     "taiga_tpu/ops/ff_kernels.py:448", ("parallel",)),
+    # replace XLA programs, not Pallas calls
+    ("ec_double", "ec_double_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
+     "none: the XLA program taiga_tpu/ops/ec.py:75", ("parallel",)),
+    ("poseidon", "permute_batch", "taiga_tpu_torch/csrc/poseidon.cu",
+     "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:62", ("poseidon", "parallel")),
 ]
 
 
 def _wrapper(attr):
-    from taiga_tpu_torch.ops import ff_kernels as FK, tape_device as TD
+    from taiga_tpu_torch.ops import ff_kernels as FK, poseidon_kernel as PK, tape_device as TD
 
-    return getattr(FK, attr, None) or getattr(TD, attr)
+    return getattr(FK, attr, None) or getattr(TD, attr, None) or getattr(PK, attr)
 
 
 def zero_counts():
@@ -971,7 +1011,8 @@ def zero_counts():
 
 def read_counts(what: str, path: str) -> dict:
     """The launch counts since zero_counts(); fails if a kernel of the path
-    ("native" or "device" IPA, "batch", "tx", "vamp_ir") was never launched."""
+    ("native" or "device" IPA, "batch", "tx", "vamp_ir", "ipa_list",
+    "poseidon", "parallel") was never launched."""
     counts = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
     for name, _, _, _, paths in KERNELS:
         if path in paths and counts[name] == 0:
@@ -1858,6 +1899,336 @@ print(json.dumps(out))
     log(f"key cache: the child took {time.perf_counter() - t0:.2f} s in all (torch import included)")
 
 
+# --- phase 10: the last modules -----------------------------------------------
+
+W_GROUP = N // 2              # lanes of the group-law checks
+# 10f's bitserial MSM, the main path of K6, K7 and the doubling: K7 over
+# BITS_COLS x BITS_POINTS lanes, the doubling over BITS_POINTS, K6's first
+# tree level over BITS_COLS x BITS_POINTS / 2
+BITS_POINTS, BITS_COLS = 1024, 2
+SAMPLED = (0, 1, 2, 3, 4, 5, 6, 7, 1000, W_GROUP - 1)  # lanes held against the host
+POSEIDON_STATES = 16384       # bench.py tier 3's n
+HASH_SHAPE = (4096, 8)        # bench.py tier 2's (batch, length)
+MERKLE_LEAVES = 1 << 14
+POSEIDON_PRODUCTS = 8 * 18 + 56 * 12  # Montgomery products a permutation: full + partial rounds
+
+
+def phase_group_law(rng, dev, smi: str):
+    """10a: ec.ec_add (K6), ec.ec_double (the doubling kernel) and
+    ec.ec_scalar_mul_shared (K7 and the doubling, 255 steps) at 4,096
+    lanes on both fields, with identity, P = Q and P = -Q lanes
+    (jacobian_inputs' lanes 0-6), against their plain versions bit for bit
+    and against the host group law on sampled lanes; K6, K7 and the
+    doubling timed at the widths of their main path, 10f's bitserial MSM,
+    and the ladder timed (CUDA events)."""
+    import torch
+    from taiga_tpu_torch.ops import ec, ff_kernels as FK, limbs as L
+
+    fe = 16 * 4
+    err, res = 0, {}
+    for field in ("fp", "fq"):
+        spec = L.FIELDS[field]
+        curve = curve_of(field)
+        p1, p2 = jacobian_inputs(rng, field, dev)
+        P = tuple(v[:, :W_GROUP].T.contiguous() for v in p1)  # (B, 16) rows
+        Q = tuple(v[:, :W_GROUP].T.contiguous() for v in p2)
+        s = int(rng.integers(1, 1 << 62)) ** 5 % curve.SCALAR.MODULUS
+        sl = L.int_to_limbs(s)
+        got = (ec.ec_add(P, Q, spec), ec.ec_double(P, spec), ec.ec_scalar_mul_shared(P, sl, spec))
+        with FK.plain_versions():
+            t0 = time.perf_counter()
+            want = (ec.ec_add(P, Q, spec), ec.ec_double(P, spec))
+            ladder = ec.ec_scalar_mul_shared(P, sl, spec)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+        for what, g, w in zip(("ec_add", "ec_double", "ec_scalar_mul_shared"), got,
+                              want + (ladder,)):
+            err = max(err, compare(f"ec.{what}[{field}]", g, w))
+        for lane in SAMPLED:
+            a, b = (to_affine(field, *(v.T for v in pt), lane, jacobian=True) for pt in (P, Q))
+            outs = [to_affine(field, *(v.T for v in g), lane, jacobian=True) for g in got]
+            if outs != [a + b, a + a, a * s]:
+                raise AssertionError(f"ec[{field}]: lane {lane} disagrees with the host group law")
+        if field == "fq":
+            ms_d = cuda_ms(lambda: ec.ec_double(P, spec), 20)
+            ms_l = cuda_ms(lambda: ec.ec_scalar_mul_shared(P, sl, spec), 3)
+            # K6, K7 and the doubling at the widths their main path gives
+            # them (10f's bitserial MSM; K7's bits drawn at random)
+            w6, w7, wd = BITS_COLS * BITS_POINTS // 2, BITS_COLS * BITS_POINTS, BITS_POINTS
+            lm = [v[:wd].T.contiguous() for v in P]
+            ms_dk = cuda_ms(lambda: FK.ec_double_lm(*lm, "fq"), 50)
+            with FK.plain_versions():
+                pms = cuda_ms(lambda: FK.ec_double_lm(*lm, "fq"), 3)
+            bits = torch.as_tensor(rng.integers(0, 2, (1, w7)), dtype=torch.int32, device=dev)
+            p6, q6, p7, q7 = ([v[:w].T.contiguous() for v in pt]
+                              for w in (w6, w7) for pt in (P, Q))
+            for name, fn, w, sel_bytes in (
+                    ("ec_add", lambda: FK.ec_add_lm(*p6, *q6, "fq"), w6, 0),
+                    ("ec_add_select", lambda: FK.ec_add_select_lm(*p7, *q7, bits, "fq"), w7, 4)):
+                # as phase 4 reckons them: 16 products a lane (the general add)
+                b = bound_ms((9 * fe + sel_bytes) * w, 16 * MM_IMADS * w)
+                res[name] = dict(ms=cuda_ms(fn, 50), bound=b, B=w)
+                log(f"{name} at B={w}: {res[name]['ms']:.6f} ms per launch (bound "
+                    f"{b[0]:.6f} ms by {b[1]})")
+            res["ec_double"] = dict(err=0, ms=ms_dk, plain_ms=pms, B=wd,
+                                    bound=bound_ms(6 * fe * wd, 7 * MM_IMADS * wd))
+            log(f"ec_double kernel at B={wd}: {ms_dk:.6f} ms per launch (plain {pms:.3f} "
+                f"ms; bound {res['ec_double']['bound'][0]:.6f} ms by "
+                f"{res['ec_double']['bound'][1]}); ec.ec_double at B={W_GROUP} with its two "
+                f"transposes {ms_d:.6f} ms; the 255-step ladder {ms_l:.3f} ms (plain, both helpers and "
+                f"the ladder: {t_plain:.2f} s)   [{smi}]")
+    res["ec_double"]["err"] = err
+    log(f"10a group law: ec_add (K6), ec_double and ec_scalar_mul_shared (K7 + doubling) equal "
+        f"their plain versions on fp and fq at B={W_GROUP} (identity, P = Q, P = -Q lanes) and "
+        f"the host group law on lanes {SAMPLED}")
+    return res
+
+
+def phase_ipa_list(seed: int, smi: str):
+    """10b: the list-based IPA open (plonk/ipa.py::ipa_open: host-int
+    coefficients, opened by ipa_open_device) of a random polynomial at
+    k = 13 on the card; its bytes equal ipa_open_device's and
+    ipa_open_native's under one seed; ipa_verify accepts it and refuses it
+    with a0 changed. Launch counts zeroed just before the open, read after
+    (the "ipa_list" path: K5 in the generator folds, K2, ec_seg_rounds and
+    ec_horner in the MSMs)."""
+    import torch
+    from taiga_tpu_torch.native import hostops as H
+    from taiga_tpu_torch.ops import limbs as L
+    from taiga_tpu_torch.plonk import ipa as TI
+    from taiga_tpu_torch.plonk.native_open import _msm_point, ipa_open_native
+    from taiga_tpu_torch.plonk.srs import get_params
+    from taiga_tpu_torch.plonk.transcript import ProofReader, ProofWriter
+
+    label = b"taiga-tpu-ipa-list"
+    r = random.Random(seed)
+    P = L.FP.modulus
+    coeffs = [r.getrandbits(254) % P for _ in range(N)]
+    x, blind = r.getrandbits(254) % P, r.getrandbits(254) % P
+    params = get_params(K)
+    mont = L.FP.array_to_mont(coeffs)
+    proofs = {}
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = ProofWriter(label)
+    TI.ipa_open(params, coeffs, blind, x, tr, seeded_randbits(seed + 1), device="cuda")
+    torch.cuda.synchronize()
+    t_list = time.perf_counter() - t0
+    launches = read_counts("list-based IPA open", "ipa_list")
+    proofs["list"] = tr.bytes()
+    tr = ProofWriter(label)
+    t0 = time.perf_counter()
+    TI.ipa_open_device(params, torch.as_tensor(mont, device="cuda"), blind, x, tr,
+                       seeded_randbits(seed + 1))
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    proofs["device"] = tr.bytes()
+    tr = ProofWriter(label)
+    ipa_open_native(params, L.packed_to_u64(L.pack_limbs(torch.as_tensor(mont))), blind, x, tr,
+                    seeded_randbits(seed + 1))
+    proofs["native"] = tr.bytes()
+    if not proofs["list"] == proofs["device"] == proofs["native"]:
+        raise AssertionError("the list-based, device and native IPA opens differ")
+    v = 0
+    for c in reversed(coeffs):
+        v = (v * x + c) % P
+    commit = _msm_point(K, H.ints_to_u64(coeffs), blind)
+    verify = lambda pr: TI.ipa_verify(params, [(commit, 1)], x, v, ProofReader(pr, label))
+    tampered = bytearray(proofs["list"])
+    tampered[-64] ^= 1
+    if not verify(proofs["list"]) or verify(bytes(tampered)):
+        raise AssertionError("ipa_verify does not accept the list-based open, or accepts it "
+                             "with a0 changed")
+    log(f"10b list-based IPA open at k={K}: {t_list:.3f} s (ipa_open_device {t_dev:.3f} s), "
+        f"{len(proofs['list'])} bytes equal to ipa_open_device's and ipa_open_native's; "
+        f"verified, refused with a0 changed; launches K5 {launches['ec_fold_shared']}, K2 "
+        f"{launches['ec_add_proj']}, ec_seg_rounds {launches['ec_seg_rounds']}, ec_horner "
+        f"{launches['ec_horner']}   [{smi}]")
+    return launches
+
+
+def phase_poseidon(rng, dev, smi: str):
+    """10d: permute_batch (csrc/poseidon.cu) at bench.py tier 3's 16,384
+    states against its plain version bit for bit and the host permutation
+    on sampled lanes; hash_n_batch at tier 2's (4,096, 8) and merkle_root of
+    2^14 leaves against the host hash (launch counts zeroed just before
+    them, read after: the "poseidon" path); permutations per second."""
+    import torch
+    from taiga_tpu_torch.crypto import poseidon as hp
+    from taiga_tpu_torch.crypto.fields import Fp
+    from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L, poseidon_kernel as PK
+
+    spec = L.FP
+
+    def elems(count):  # (count, 16) canonical elements below 2^254 < p
+        x = rng.integers(0, 1 << 16, size=(count, 16), dtype=np.int32)
+        x[:, 15] &= 0x3FFF
+        return torch.as_tensor(x, device=dev)
+
+    states = elems(POSEIDON_STATES * 3).reshape(POSEIDON_STATES, 3, 16)
+    got = PK.permute_batch(states)
+    with FK.plain_versions():
+        want = PK.permute_batch(states)
+        pms = cuda_ms(lambda: PK.permute_batch(states), 1)
+    err = compare("poseidon.permute_batch", (got,), (want,))
+    host = spec.array_from_mont(states[list(SAMPLED[:8])].reshape(-1, 16).cpu())
+    out = spec.array_from_mont(got[list(SAMPLED[:8])].reshape(-1, 16).cpu())
+    if out != [v for i in range(8) for v in hp.permute_ints(host[3 * i : 3 * i + 3])]:
+        raise AssertionError("poseidon.permute_batch disagrees with the host permutation")
+    ms = cuda_ms(lambda: PK.permute_batch(states), 20)
+    fe = 16 * 4
+    bound = bound_ms(2 * 3 * fe * POSEIDON_STATES,
+                     POSEIDON_PRODUCTS * MM_IMADS * POSEIDON_STATES)
+    B, length = HASH_SHAPE
+    msgs = elems(B * length).reshape(B, length, 16)
+    leaves = elems(MERKLE_LEAVES)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hashes = PK.hash_n_batch(msgs, length)
+    torch.cuda.synchronize()
+    t_hash = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    root = PK.merkle_root(leaves)
+    torch.cuda.synchronize()
+    t_root = time.perf_counter() - t0
+    launches = read_counts("Poseidon", "poseidon")
+    m_host = spec.array_from_mont(msgs[list(SAMPLED[:8])].reshape(-1, 16).cpu())
+    want_h = [hp.poseidon_hash_n([Fp(v) for v in m_host[length * i : length * (i + 1)]]).v
+              for i in range(8)]
+    if [f.v for f in PK.mont_to_fps(hashes[list(SAMPLED[:8])])] != want_h:
+        raise AssertionError("poseidon.hash_n_batch disagrees with the host hash")
+    level = PK.mont_to_fps(leaves)
+    while len(level) > 1:
+        level = [hp.poseidon_hash(level[i], level[i + 1]) for i in range(0, len(level), 2)]
+    if PK.mont_to_fps(root[None])[0] != level[0]:
+        raise AssertionError("poseidon.merkle_root disagrees with the host tree")
+    rate = POSEIDON_STATES / (ms / 1e3)
+    log(f"10d poseidon permute_batch at {POSEIDON_STATES} states: {ms:.6f} ms per launch "
+        f"({rate:.0f} permutations/s; plain {pms:.1f} ms; bound {bound[0]:.6f} ms by "
+        f"{bound[1]}), equal to its plain version and the host permutation; hash_n_batch at "
+        f"{HASH_SHAPE} {t_hash * 1e3:.3f} ms ({B / t_hash:.0f} hashes/s), merkle_root of "
+        f"{MERKLE_LEAVES} leaves {t_root * 1e3:.3f} ms, both equal to the host hash; launches "
+        f"{launches['poseidon']}   [{smi}]")
+    return {"poseidon": dict(err=err, ms=ms, plain_ms=pms, B=POSEIDON_STATES, bound=bound)}, \
+        launches
+
+
+def phase_keygen_device(pk, smi: str):
+    """10e: the compliance key's fixed and sigma columns committed on the
+    card (keygen.commit_columns: one iNTT, msm_multi) against the host
+    engine's keygen at k = 13: the same points, and a verifying key on
+    them with the host key's bytes; both timed."""
+    import torch
+    from taiga_tpu_torch.circuits.compliance import ComplianceCircuit
+    from taiga_tpu_torch.plonk.keygen import VerifyingKey, commit_columns, keygen
+
+    t0 = time.perf_counter()
+    host = keygen(ComplianceCircuit(), K)
+    t_host = time.perf_counter() - t0
+    cols = np.concatenate([host.fixed_mont(), host.sigma_mont()])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pts = commit_columns(K, cols, "cuda")
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    vk, nf = host.vk, len(host.vk.fixed_commitments)
+    dev_vk = VerifyingKey(K, vk.cs, vk.perm_cols, pts[:nf], pts[nf:], vk.omega)
+    want = pk.vk.to_bytes()
+    if vk.to_bytes() != want or dev_vk.to_bytes() != want:
+        raise AssertionError("the card's column commitments differ from the host keygen's")
+    log(f"10e the compliance key's {len(pts)} column commitments at k={K}: {t_dev:.2f} s on "
+        f"the card (commit_columns), the host engine's whole keygen {t_host:.2f} s; verifying "
+        f"keys equal byte for byte   [{smi}]")
+
+
+def phase_parallel(pk, seed: int, dev, smi: str):
+    """10f: the sharded layer at world 1 over NCCL in this process:
+    sharded_msm_multi (Pippenger, and the bitserial K7 ladder), ntt_mesh
+    (k = 13), batch_hash_step, sharded_point_sum and prove_step against
+    their unsharded counterparts, and a grouped create_proofs_batch of 2
+    compliance proofs against the ungrouped batch, byte for byte. Launch
+    counts zeroed just before, read after (the "parallel" path)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from taiga_tpu_torch.core.compliance import ComplianceInfo
+    from taiga_tpu_torch.crypto.curves import VestaPoint
+    from taiga_tpu_torch.ops import ec, limbs as L, msm as TM, ntt, poseidon_kernel as PK
+    from taiga_tpu_torch.parallel import sharded as SH
+    from taiga_tpu_torch.plonk.prover import create_proofs_batch
+    from taiga_tpu_torch.plonk.srs import srs_device
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    group = SH.make_group("cuda", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        r = random.Random(seed)
+        gx, gy, gz = (torch.as_tensor(a, device=dev) for a in srs_device(K))
+        scal = torch.as_tensor(np.stack([L.ints_to_limbs([r.getrandbits(255) for _ in range(N)])
+                                         for _ in range(BITS_COLS)]), device=dev)
+        vec = torch.as_tensor(L.FP.array_to_mont([r.getrandbits(254) for _ in range(N)]),
+                              device=dev)
+        msgs = torch.as_tensor(L.FP.array_to_mont([r.getrandbits(254) for _ in range(4096 * 8)])
+                               .reshape(4096, 8, 16), device=dev)
+        nb = BITS_POINTS  # 255 K7 launches over BITS_COLS x nb lanes, 254 doublings over nb
+        built = [ComplianceInfo.random(random.Random(seed + 100 + i)).build() for i in range(2)]
+        insts = [pis.to_instance() for pis, _ in built]
+        circuits = [c for _, c in built]
+        want_b = create_proofs_batch(pk, circuits, insts, device="cuda",
+                                     randbits=seeded_randbits(seed + 101))
+        times = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            return out
+
+        zero_counts()
+        pip = timed("sharded_msm_multi", lambda: SH.sharded_msm_multi(group, gx, gy, gz, scal))
+        bits = timed("sharded_msm_multi bitserial", lambda: SH.sharded_msm_multi(
+            group, gx[:nb], gy[:nb], gz[:nb], scal[:, :nb].contiguous(), strategy="bitserial"))
+        mesh = timed("ntt_mesh", lambda: ntt.ntt_mesh(group, vec, K, "fp"))
+        hashes = timed("batch_hash_step", lambda: SH.batch_hash_step(group, msgs))
+        psum = timed("sharded_point_sum", lambda: SH.sharded_point_sum(group, gx, gy, gz))
+        step = timed("prove_step", lambda: SH.prove_step(group, msgs, gx, gy, gz))
+        got_b = timed("create_proofs_batch(group)", lambda: create_proofs_batch(
+            pk, circuits, insts, randbits=seeded_randbits(seed + 101), group=group))
+        launches = read_counts("sharded layer", "parallel")
+
+        pt = lambda a: ec.points_from_device(tuple(a[:, None]), VestaPoint)[0]
+        if not torch.equal(pip, TM.msm_multi(gx, gy, gz, scal)):
+            raise AssertionError("sharded_msm_multi differs from msm_multi")
+        ref_b = TM.msm_multi(gx[:nb], gy[:nb], gz[:nb], scal[:, :nb].contiguous())
+        if [pt(v) for v in bits] != [pt(v) for v in ref_b]:
+            raise AssertionError("the bitserial sharded_msm_multi differs from msm_multi")
+        if not torch.equal(mesh, ntt.ntt(vec, K, "fp")):
+            raise AssertionError("ntt_mesh differs from ntt")
+        if not torch.equal(hashes, PK.hash_n_batch(msgs, 8)):
+            raise AssertionError("batch_hash_step differs from hash_n_batch")
+        pts = ec.points_from_device((gx, gy, gz), VestaPoint)
+        if pt(psum) != sum(pts[1:], pts[0]):
+            raise AssertionError("sharded_point_sum differs from the host sum")
+        if not (torch.equal(step[0], hashes) and torch.equal(step[1], psum)):
+            raise AssertionError("prove_step differs from its two parts")
+        if got_b != want_b:
+            raise AssertionError("the grouped batch differs from the ungrouped batch")
+    finally:
+        dist.destroy_process_group()
+    log("10f world 1 runs the sharded code and NCCL's collectives but moves nothing between "
+        "devices; a multi-card run waits for a multi-card machine")
+    log(f"10f sharded layer at world 1 over NCCL, each equal to its unsharded counterpart: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+        + f"; launches {launches}   [{smi}]")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1891,6 +2262,20 @@ def main(argv=None) -> int:
     phase_service(smi, transparent, shielded)
     phase_key_cache({"compliance": (ComplianceCircuit, K, source, t_key), "vamp_ir": vir_key},
                     smi)
+    t10 = time.perf_counter()
+    rng10 = np.random.default_rng(args.seed + 50)
+    path_ms = phase_group_law(rng10, dev, smi)  # K6/K7 on their main path's width
+    res["ec_double"] = path_ms.pop("ec_double")
+    for name, r in path_ms.items():
+        res[name].update(path_ms=r["ms"], path_bound=r["bound"], path_B=r["B"])
+    launches_ipa = phase_ipa_list(args.seed + 51, smi)
+    res_p, launches_pos = phase_poseidon(rng10, dev, smi)
+    res.update(res_p)
+    phase_keygen_device(pk, smi)
+    launches_par = phase_parallel(pk, args.seed + 52, dev, smi)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+    by_path = {"native": launches, "device": launches, "ipa_list": launches_ipa,
+               "poseidon": launches_pos, "parallel": launches_par}
 
     for what, (stages, total) in (("native IPA", native), ("device IPA", device)):
         log(f"stage wall times of a warm k={K} proof, {what}, on {smi}:")
@@ -1909,16 +2294,26 @@ def main(argv=None) -> int:
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
 
     rows = []
-    for name, attr, src, replaces, _ in KERNELS:
+    for name, attr, src, replaces, paths in KERNELS:
         r = res[name]
+        # "launches": the run of the kernel's main path, its first path
+        # (phase 5's proof for K1-K5 and the chained forms)
+        main_path = next((p for p in paths if p in by_path), "native")
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": launches[name], "launches_batch": launches_b[name],
+                     "launches": by_path[main_path][name], "launches_path": main_path,
+                     "launches_proof": launches[name], "launches_batch": launches_b[name],
                      "launches_tx": launches_tx[name], "launches_leg": launches_leg[name],
                      "launches_vamp_ir": launches_vir[name],
+                     "launches_ipa_list": launches_ipa[name],
+                     "launches_poseidon": launches_pos[name],
+                     "launches_parallel": launches_par[name],
                      "max_abs_err": r["err"],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                      "library_ms": None, "ms_traces": TRACES.get(name)})
+        if "path_ms" in r:  # K6/K7 at the width of their main path (phase 10a)
+            rows[-1].update(path_ms=r["path_ms"], path_B=r["path_B"],
+                            path_bound_ms=r["path_bound"][0], path_bound_by=r["path_bound"][1])
         if "batch" in r:  # the kernel at the width of its launch in a lockstep batch
             b = r["batch"]
             rows[-1].update(batch_ms=b["ms"], batch_plain_ms=b["plain_ms"],

@@ -21,7 +21,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac")
+SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac", "poseidon")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FIELD_IDS = {"fp": 0, "fq": 1}
 
@@ -95,6 +95,11 @@ _ARGTYPES = {
     "ec_add_jac": {
         "taiga_ec_add_jac": [_VP] * 9 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_add_jac_sel": [_VP] * 10 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_double_jac": [_VP] * 6 + [_I64, ctypes.c_int, _VP],
+    },
+    "poseidon": {
+        "taiga_poseidon_set_consts": [_VP, _VP],
+        "taiga_poseidon_permute": [_VP, _VP, _I64, _VP],
     },
 }
 

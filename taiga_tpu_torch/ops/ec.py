@@ -1,17 +1,28 @@
-"""Host <-> device codecs for Pasta curve points as limb tensors.
+"""Batched elliptic-curve arithmetic over the Pasta curves as limb tensors.
 
-Port of the codecs of taiga_tpu/ops/ec.py. Device points are Jacobian
-(X, Y, Z) triples of (..., 16) int32 Montgomery limbs (Z = 0 encodes the
-identity); Pallas coordinates lie in Fp, Vesta's in Fq. The group law on the
-device is the projective kernel of ops/ff_kernels.py.
+Port of taiga_tpu/ops/ec.py: the host <-> device codecs and the Jacobian
+group law. Device points are Jacobian (X, Y, Z) triples of (..., 16) int32
+Montgomery limbs (Z = 0 encodes the identity); Pallas coordinates lie in Fp,
+Vesta's in Fq. Both are a = 0 curves, so one formula serves both with the
+coordinate FieldSpec passed in.
+
+The group law runs on the Jacobian kernels of ops/ff_kernels.py, on
+limb-major (16, B) copies of the rows: ec_add is K6 (the complete add:
+add and doubling both computed, then selected), ec_double the doubling
+kernel (dbl-2009-l, no case analysis), and every step of
+ec_scalar_mul_shared is K7 (add where the shared bit is set) and a
+doubling. On CPU tensors the wrappers run their plain versions, so the
+results equal the reference's limb for limb (tests/test_torch_ec.py).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..crypto.curves import CurvePoint
 from ..crypto.fields import Fp
+from . import ff_kernels as FK
 from . import limbs as L
 
 
@@ -59,3 +70,66 @@ def points_from_device(xyz, curve: type[CurvePoint]) -> list[CurvePoint]:
                 curve(F(xv * zi2 % F.MODULUS), F(yv * zi2 % F.MODULUS * zinv % F.MODULUS))
             )
     return out
+
+
+# --- group law --------------------------------------------------------------
+
+
+def _to_lm(p):
+    """Coordinates of (..., 16) rows -> their batch shape and (16, B)
+    limb-major copies."""
+    shape = tuple(p[0].shape[:-1])
+    return shape, [v.reshape(-1, L.NLIMBS).T.contiguous() for v in p]
+
+
+def _from_lm(shape, pts):
+    return tuple(v.T.reshape(shape + (L.NLIMBS,)).contiguous() for v in pts)
+
+
+def ec_double(p, spec: L.FieldSpec):
+    """Jacobian doubling for a = 0 (dbl-2009-l). Identity-safe (Z3 = 2YZ = 0);
+    also maps 2-torsion (Y = 0) to Z3 = 0 correctly."""
+    shape, lm = _to_lm(p)
+    return _from_lm(shape, FK.ec_double_lm(*lm, spec.name))
+
+
+def ec_add(p, q, spec: L.FieldSpec):
+    """Complete Jacobian addition (K6): the general add and the doubling are
+    both computed and selected lane-wise. The two points' batch shapes
+    broadcast."""
+    shape, lm = _to_lm(torch.broadcast_tensors(*p, *q))
+    return _from_lm(shape, FK.ec_add_lm(*lm, spec.name))
+
+
+def ec_select(cond, p, q):
+    """cond ? p : q lane-wise (cond: (...,) bool)."""
+    return tuple(torch.where(cond[..., None], a, b) for a, b in zip(p, q))
+
+
+def ec_scalar_mul_shared(p, scalar_limbs, spec: L.FieldSpec, bits: int = 255):
+    """[s] P lane-wise where all lanes share ONE scalar (plain 16-bit limbs,
+    shape (16,)). Double-and-add, LSB first, select on the shared bit — as
+    the IPA generator fold uses it (G' = G_lo + [u^-1] G_hi). Each step is
+    one K7 launch (acc + base where the bit is set, broadcast over the
+    lanes) and one doubling launch; the reference's last doubling, whose
+    result nothing reads, is left out."""
+    (s,) = L.limbs_to_ints(scalar_limbs)
+    shape, base = _to_lm(p)
+    B = base[0].shape[1]
+    acc = [torch.zeros_like(v) for v in base]
+    on = torch.ones((1, B), dtype=L.DTYPE, device=base[0].device)
+    off = torch.zeros_like(on)
+    for i in range(bits):
+        acc = FK.ec_add_select_lm(*acc, *base, on if (s >> i) & 1 else off, spec.name)
+        if i + 1 < bits:
+            base = FK.ec_double_lm(*base, spec.name)
+    return _from_lm(shape, acc)
+
+
+def ec_identity_like(p):
+    return torch.zeros_like(p[0]), torch.zeros_like(p[1]), torch.zeros_like(p[2])
+
+
+def ec_neg(p, spec: L.FieldSpec):
+    x, y, z = p
+    return x, L.neg(y, spec), z

@@ -14,6 +14,7 @@ warp's lanes read neighbouring words.
   K5 ec_fold_shared_lm  G_lo + [s] G_hi, one shared s  csrc/ec_fold_shared.cu
   K6 ec_add_lm          complete Jacobian add          csrc/ec_add_jac.cu
   K7 ec_add_select_lm   sel ? P1 + P2 : P1 (Jacobian)  csrc/ec_add_jac.cu
+     ec_double_lm       Jacobian doubling (dbl-2009-l) csrc/ec_add_jac.cu
   (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu.)
 
 Dispatch is by the tensors' device: on the CPU a wrapper runs the plain
@@ -42,10 +43,11 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner)
-    runs its plain version, on any device. Used to hold the kernels'
-    results against the plain path. The flag is module state: it covers
-    every thread, the pipelined prover's worker included."""
+    """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner,
+    ec_double, and poseidon_kernel.permute_batch) runs its plain version,
+    on any device. Used to hold the kernels' results against the plain
+    path. The flag is module state: it covers every thread, the pipelined
+    prover's worker included."""
     global _force_plain
     prev, _force_plain = _force_plain, True
     try:
@@ -142,46 +144,52 @@ def _is_zero(a):
     return (a == 0).all(dim=0)
 
 
+def _ec_double_core(x1, y1, z1, field: str):
+    """Jacobian doubling for a = 0 (dbl-2009-l; taiga_tpu/ops/ec.py::ec_double),
+    no case analysis: an identity lane (Z = 0) gets Z3 = 2YZ = 0. The
+    reference's field operations, the independent products of each step
+    stacked into one call (3 calls for its 7 products): every value, and so
+    every limb, is the op-by-op formula's."""
+    mm, add, sub = (_stacked(op, field) for op in (_mm_cios, _madd, _msub))
+
+    a_, b_, yz = mm([x1, y1, y1], [x1, y1, z1])
+    xb, e_, dz = add([x1, a_, yz], [b_, a_, yz])
+    (e_,) = add([e_], [a_])  # E = 3A
+    c_, xb2, f_ = mm([b_, xb, e_], [b_, xb, e_])
+    (d_,) = sub([xb2], [a_])
+    (d_,) = sub([d_], [c_])
+    (d_,) = add([d_], [d_])  # D = 2((X+B)^2 - A - C)
+    c2, d2 = add([c_, d_], [c_, d_])
+    (dx,) = sub([f_], [d2])
+    (c8,) = add([c2], [c2])
+    (c8,) = add([c8], [c8])  # 8C
+    (t,) = sub([d_], [dx])
+    (et,) = mm([e_], [t])
+    (dy,) = sub([et], [c8])
+    return dx.contiguous(), dy.contiguous(), dz.contiguous()
+
+
 def _ec_add_core(x1, y1, z1, x2, y2, z2, field: str):
     """Complete Jacobian addition (reference _ec_add_core): the general add
     and the doubling (a = 0) are both computed, then selected — doubling
     where P1 = P2, Z = 0 where P1 = -P2, the other operand where one is the
-    identity (Z = 0)."""
-    mm = lambda a, b: _mm_cios(a, b, field)
-    add = lambda a, b: _madd(a, b, field)
-    sub = lambda a, b: _msub(a, b, field)
+    identity (Z = 0). The general add's 16 products run as 6 stacked calls
+    (the values of the op-by-op formula, as in _ec_add_proj_core), and the
+    doubling only when a lane selects it."""
+    mm, add, sub = (_stacked(op, field) for op in (_mm_cios, _madd, _msub))
 
-    z1z1 = mm(z1, z1)
-    z2z2 = mm(z2, z2)
-    u1 = mm(x1, z2z2)
-    u2 = mm(x2, z1z1)
-    s1 = mm(y1, mm(z2, z2z2))
-    s2 = mm(y2, mm(z1, z1z1))
-    h = sub(u2, u1)
-    r = sub(s2, s1)
-    hh = mm(h, h)
-    hhh = mm(h, hh)
-    v = mm(u1, hh)
-    r2 = mm(r, r)
-    x3 = sub(sub(r2, hhh), add(v, v))
-    y3 = sub(mm(r, sub(v, x3)), mm(s1, hhh))
-    z3 = mm(mm(z1, z2), h)
-
-    # doubling path (a = 0)
-    a_ = mm(x1, x1)
-    b_ = mm(y1, y1)
-    c_ = mm(b_, b_)
-    xb = add(x1, b_)
-    d_ = sub(sub(mm(xb, xb), a_), c_)
-    d_ = add(d_, d_)
-    e_ = add(add(a_, a_), a_)
-    f_ = mm(e_, e_)
-    dx = sub(f_, add(d_, d_))
-    c8 = add(add(c_, c_), add(c_, c_))
-    c8 = add(c8, c8)
-    dy = sub(mm(e_, sub(d_, dx)), c8)
-    yz = mm(y1, z1)
-    dz = add(yz, yz)
+    z1z1, z2z2, z1z2 = mm([z1, z2, z1], [z1, z2, z2])
+    u1, u2, t2, t1 = mm([x1, x2, z2, z1], [z2z2, z1z1, z2z2, z1z1])
+    s1, s2 = mm([y1, y2], [t2, t1])
+    h, r = sub([u2, s2], [u1, s1])
+    hh, r2, z3 = mm([h, r, z1z2], [h, r, h])
+    hhh, v = mm([h, u1], [hh, hh])
+    (v2,) = add([v], [v])
+    (x3,) = sub([r2], [hhh])
+    (x3,) = sub([x3], [v2])
+    (vx,) = sub([v], [x3])
+    rv, sh = mm([r, s1], [vx, hhh])
+    (y3,) = sub([rv], [sh])
 
     p_inf = _is_zero(z1)
     q_inf = _is_zero(z2)
@@ -191,9 +199,12 @@ def _ec_add_core(x1, y1, z1, x2, y2, z2, field: str):
     is_double = both & h_zero & r_zero
     is_cancel = both & h_zero & ~r_zero
 
-    xo = torch.where(is_double, dx, x3)
-    yo = torch.where(is_double, dy, y3)
-    zo = torch.where(is_double, dz, z3)
+    xo, yo, zo = x3, y3, z3
+    if bool(is_double.any()):  # the doubling path; no lane reads it otherwise
+        dx, dy, dz = _ec_double_core(x1, y1, z1, field)
+        xo = torch.where(is_double, dx, x3)
+        yo = torch.where(is_double, dy, y3)
+        zo = torch.where(is_double, dz, z3)
     zo = torch.where(is_cancel, 0, zo)
     xo = torch.where(p_inf, x2, torch.where(q_inf, x1, xo))
     yo = torch.where(p_inf, y2, torch.where(q_inf, y1, yo))
@@ -246,10 +257,19 @@ def ec_add_plain(x1, y1, z1, x2, y2, z2, field: str = "fq"):
 
 
 def ec_add_select_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
-    """Plain version of K7: sel ? P1 + P2 : P1 (Jacobian), lane-wise."""
-    x3, y3, z3 = ec_add_plain(x1, y1, z1, x2, y2, z2, field)
+    """Plain version of K7: sel ? P1 + P2 : P1 (Jacobian), lane-wise. With
+    no lane selected (a zero bit of ec_scalar_mul_shared's shared scalar)
+    that is P1, and no add is computed."""
     m = sel[0] != 0
+    if not bool(m.any()):
+        return x1.clone(), y1.clone(), z1.clone()
+    x3, y3, z3 = ec_add_plain(x1, y1, z1, x2, y2, z2, field)
     return torch.where(m, x3, x1), torch.where(m, y3, y1), torch.where(m, z3, z1)
+
+
+def ec_double_plain(x1, y1, z1, field: str = "fq"):
+    """Plain version of the Jacobian doubling (ec_double_lm)."""
+    return _ec_double_core(x1, y1, z1, field)
 
 
 def ec_horner_plain(wx, wy, wz, doublings: int, field: str = "fq"):
@@ -452,6 +472,24 @@ def ec_add_select_lm(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return outs
 
 
+def ec_double_lm(x1, y1, z1, field: str = "fq"):
+    """Jacobian doubling (dbl-2009-l, a = 0) over (16, B) limb-major points:
+    the XLA program taiga_tpu/ops/ec.py::ec_double as one kernel. Unlike
+    K6(P, P), an identity lane keeps the formula's X3, Y3 with Z3 = 0."""
+    B = x1.shape[-1]
+    pts = (x1, y1, z1)
+    for nm, t in zip(("x1", "y1", "z1"), pts):
+        check_lm(nm, t, NLIMBS, B)
+    if not use_kernel(*pts):
+        return ec_double_plain(*pts, field=field)
+    outs = tuple(torch.empty_like(x1) for _ in range(3))
+    so = CK.lib("ec_add_jac")
+    CK.check(so.taiga_ec_double_jac(*map(_ptr, pts + outs), B, CK.FIELD_IDS[field],
+                                    CK.stream_ptr(x1.device)), "ec_double")
+    ec_double_lm.launches += 1
+    return outs
+
+
 def ec_fold_shared_lm(gx_lo, gy_lo, gz_lo, gx_hi, gy_hi, gz_hi, scalar_limbs,
                       field: str = "fq"):
     """K5: the IPA generator fold G' = G_lo + [s] G_hi with one shared
@@ -483,4 +521,5 @@ ec_seg_rounds_lm.launches = 0
 ec_horner_lm.launches = 0
 ec_add_lm.launches = 0
 ec_add_select_lm.launches = 0
+ec_double_lm.launches = 0
 ec_fold_shared_lm.launches = 0

@@ -144,3 +144,95 @@ def coset_intt(evals, k: int, field: str = "fp", g: int = 5):
     coeffs = _ntt_core(evals, k, field, True)
     cpow = _coset_powers_dev(k, field, g, True, str(evals.device))
     return L.mont_mul(coeffs, cpow, _spec(field))
+
+
+# ---------------------------------------------------------------------------
+# four-step (Bailey) NTT over a process group: n = n1*n2 as an (n1, n2)
+# matrix: length-n1 column NTTs, twiddle scaling by w^(j1*i2), length-n2 row
+# NTTs, transpose. Each resharding between phases is ONE all_to_all_single
+# over the group, so a domain larger than a card's memory splits across the
+# ranks with O(n/D) memory each and three collective transposes.
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _four_step_twiddles(k: int, k1: int, field: str, inverse: bool) -> np.ndarray:
+    """T[j1, i2] = w^(+-j1*i2) Montgomery, shape (2^k1, 2^(k-k1), 16) numpy."""
+    spec = _spec(field)
+    p = spec.modulus
+    n1, n2 = 1 << k1, 1 << (k - k1)
+    omega, omega_inv, _, _ = domain_params(k, field)
+    w = omega_inv if inverse else omega
+    vals = []
+    for j1 in range(n1):
+        base = pow(w, j1, p)
+        acc = 1
+        for _ in range(n2):
+            vals.append(acc)
+            acc = acc * base % p
+    return spec.array_to_mont(vals).reshape(n1, n2, L.NLIMBS)
+
+
+def _transpose_blocks(group, a: torch.Tensor) -> torch.Tensor:
+    """The tiled all_to_all of the reference (split_axis=1, concat_axis=0):
+    this rank's (r, c, 16) block cut into D column chunks, chunk j sent to
+    rank j; the chunks received, in rank order, stacked as rows:
+    (D*r, c/D, 16)."""
+    import torch.distributed as dist
+
+    D = group.world
+    r, c = a.shape[0], a.shape[1]
+    send = a.reshape(r, D, c // D, L.NLIMBS).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    return recv.reshape(D * r, c // D, L.NLIMBS)
+
+
+def _untranspose_blocks(group, a: torch.Tensor) -> torch.Tensor:
+    """The reference's all_to_all(split_axis=0, concat_axis=1): this rank's
+    (R, c, 16) block cut into D row chunks, chunk j sent to rank j; the
+    chunks received, in rank order, side by side: (R/D, D*c, 16)."""
+    import torch.distributed as dist
+
+    D = group.world
+    R, c = a.shape[0], a.shape[1]
+    send = a.contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    return recv.reshape(D, R // D, c, L.NLIMBS).transpose(0, 1).reshape(R // D, D * c, L.NLIMBS)
+
+
+def ntt_mesh(group, x_local: torch.Tensor, k: int, field: str = "fp",
+             inverse: bool = False) -> torch.Tensor:
+    """Distributed NTT (or its inverse) of a 2^k-point (n, 16) Montgomery
+    vector over `group` (parallel/sharded.py::make_group, D ranks): this
+    rank holds the contiguous block x[rank*n/D : (rank+1)*n/D] of the
+    natural-order input and gets the same block of the natural-order
+    output. The four-step decomposition with all_to_all_single for its
+    three transposes; needs D | n1 and D | n2 (k1 = ceil(k/2)). Bit-exact
+    against ntt()/intt() (tests/test_torch_parallel.py)."""
+    spec = _spec(field)
+    D, rank = group.world, group.rank
+    k1 = (k + 1) // 2
+    k2 = k - k1
+    n1, n2 = 1 << k1, 1 << k2
+    if n1 % D or n2 % D:
+        raise ValueError(f"four-step NTT needs D | n1 and D | n2 (D={D}, n1={n1}, n2={n2})")
+    if x_local.shape != ((1 << k) // D, L.NLIMBS):
+        raise ValueError(f"x_local: shape {tuple(x_local.shape)}, expected ({(1 << k) // D}, 16)")
+    dev = x_local.device
+    tw = torch.as_tensor(_four_step_twiddles(k, k1, field, inverse)[:, rank * n2 // D :
+                                                                    (rank + 1) * n2 // D],
+                         device=dev)
+    # row shard (n1/D, n2) of A = x.reshape(n1, n2) -> column shard (n1, n2/D)
+    a = _transpose_blocks(group, x_local.reshape(n1 // D, n2, L.NLIMBS))
+    # length-n1 column NTTs (local), then the twiddles of this column block
+    a = _ntt_core(a.transpose(0, 1), k1, field, inverse).transpose(0, 1)
+    a = L.mont_mul(a, tw, spec)
+    # -> row shard (n1/D, n2); length-n2 row NTTs (local); the inverse's
+    # sub-transforms scale by 1/n1 and 1/n2: 1/n in all
+    a = _ntt_core(_untranspose_blocks(group, a), k2, field, inverse)
+    # X[j1 + n1*j2] = A'[j1, j2]: to column shards, then this rank's
+    # contiguous block of X is its (n2/D, n1) transpose, flattened
+    a = _transpose_blocks(group, a)
+    return a.transpose(0, 1).reshape(n1 * (n2 // D), L.NLIMBS).contiguous()

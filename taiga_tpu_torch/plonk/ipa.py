@@ -1,12 +1,14 @@
-"""Inner-product-argument polynomial commitment: the device open and the
+"""Inner-product-argument polynomial commitment: the opens and the
 verifier.
 
 Port of taiga_tpu/plonk/ipa.py: `ipa_open_device` (the a/b/G folds, inner
 products and L/R MSMs on the device, with the transcript and the challenge
-scalars on the host) and `ipa_verify`. The native engine's open is
-plonk/native_open.py::ipa_open_native; both draw every blind through the
-caller's `randbits` in the same order and write the same transcript, so
-the two opens of one polynomial under one seed give the same bytes.
+scalars on the host), the list-based `ipa_open` (host-int coefficients,
+moved to the device and opened there by ipa_open_device) and `ipa_verify`.
+The native engine's open is plonk/native_open.py::ipa_open_native; the
+opens draw every blind through the caller's `randbits` in the same order
+and write the same transcript, so the opens of one polynomial under one
+seed give the same bytes.
 
 Protocol (coefficient basis; C = <a, G> + [blind] W claimed to open to
 v = a(x) with b = (1, x, ..., x^{n-1})): the prover commits a randomizer S
@@ -113,6 +115,18 @@ def ipa_open_device(params: Params, coeffs_mont: torch.Tensor, blind: int, x: in
     a0 = L.FP.from_mont_host(a[0].cpu().numpy())
     transcript.write_scalar(Fp(a0))
     transcript.write_scalar(Fp(f))
+
+
+def ipa_open(params: Params, coeffs: list[int], blind: int, x: int, transcript: ProofWriter,
+             randbits, device="cuda"):
+    """Open the polynomial given as a list of n coefficients (host ints) at
+    x; writes the IPA proof. The coefficients go to `device` ("cuda" unless
+    the caller asks for "cpu") in Montgomery form and ipa_open_device opens
+    them: the same draws, the same bytes."""
+    if len(coeffs) != params.n:
+        raise ValueError(f"{len(coeffs)} coefficients, expected {params.n}")
+    mont = L.const(L.FP.array_to_mont([c % P for c in coeffs]), L.resolve_device(device))
+    ipa_open_device(params, mont, blind, x, transcript, randbits)
 
 
 def _pad_pts_lm(pts, pad: int):

@@ -5,10 +5,13 @@ constraints, builds the permutation argument's sigma columns from the copy
 cycles, and commits fixed + sigma columns into the verifying key.
 
 Port of taiga_tpu/plonk/keygen.py. Keygen is host work on every device: the
-commitments go through the port's copy of the native engine, as the
-reference's keygen does on a CPU host. `proving_key_from_arrays` rebuilds a
-proving key from plain data (the verifying key's bytes and the Montgomery
-fixed/sigma tables), so a key made elsewhere can be carried across.
+commitments go through the port's copy of the native engine, the branch the
+reference takes whenever its engine is built. `commit_columns` is the
+reference's device branch of commit_column: the same commitments from a
+key's Montgomery tables, by the port's iNTT and MSM on a device.
+`proving_key_from_arrays` rebuilds a proving key from plain data (the
+verifying key's bytes and the Montgomery fixed/sigma tables), so a key made
+elsewhere can be carried across.
 
 Permutation tags follow halo2's scheme: cell (column j, row i) has identity
 tag delta^j * omega^i, where delta = g^(2^32) generates distinct cosets of the
@@ -56,6 +59,28 @@ def commit_column(k: int, values: list[int], blind: int = 0) -> VestaPoint:
     if blind:
         pt = pt + get_params(k).w * blind
     return pt
+
+
+COMMIT_CHUNK = 8  # columns a device MSM commits at once (msm_multi)
+
+
+def commit_columns(k: int, values_mont, device) -> list[VestaPoint]:
+    """Unblinded commitments of Lagrange-basis columns, (C, n, 16)
+    Montgomery values (ProvingKey.fixed_mont / sigma_mont), on `device`: one
+    iNTT for all of them, then the general MSM over the SRS (ops/msm.py,
+    msm_multi), COMMIT_CHUNK columns at a time. Equal to commit_column's
+    points (the device branch of taiga_tpu/plonk/keygen.py::commit_column)."""
+    from ..ops import ec, msm as msm_mod, ntt
+    from .srs import srs_device
+
+    dev = L.resolve_device(device)
+    coeffs = L.from_mont(ntt.intt(L.const(values_mont, dev), k, "fp"), L.FP)
+    gx, gy, gz = (L.const(a, dev) for a in srs_device(k))
+    pts = []
+    for lo in range(0, coeffs.shape[0], COMMIT_CHUNK):
+        out = msm_mod.msm_multi(gx, gy, gz, coeffs[lo : lo + COMMIT_CHUNK], field="fq")
+        pts += ec.points_from_device((out[:, 0], out[:, 1], out[:, 2]), VestaPoint)
+    return pts
 
 
 class _DSU:

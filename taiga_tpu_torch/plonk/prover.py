@@ -103,16 +103,39 @@ class _NoTimer:
 
 
 class _Rand:
-    """Blinds and fillers from the caller's randbits, reference order."""
+    """Blinds and fillers from the caller's randbits, reference order. A
+    batch draws stage by stage, and proof by proof within a stage: every
+    stage draws through per_proof, the one place that order is kept."""
 
     def __init__(self, randbits):
         self.randbits = randbits
 
-    def __call__(self) -> int:
-        return self.randbits(300) % P
+    def per_proof(self, B: int, count: int, reduce: bool = True) -> list[list[int]]:
+        """One stage's draws: `count` 300-bit values for each of B proofs,
+        proof by proof, each reduced mod p unless `reduce` is False."""
+        m = P if reduce else 1 << 300
+        return [[self.randbits(300) % m for _ in range(count)] for _ in range(B)]
 
-    def mont_rows(self, count: int) -> np.ndarray:
-        return L.FP.array_to_mont([self() for _ in range(count)])
+    def mont_rows(self, B: int, rows: int, count: int) -> np.ndarray:
+        """(B * rows, count, 16) Montgomery blinding rows, proof by proof."""
+        vals = [r for vs in self.per_proof(B, rows * count) for r in vs]
+        return L.FP.array_to_mont(vals).reshape(B * rows, count, L.NLIMBS)
+
+
+class _ShareRand(_Rand):
+    """A rank's share of a batch of B proofs (group.shard(B)): each stage
+    draws the whole batch's values, in the single-process order, and keeps
+    the share's."""
+
+    def __init__(self, randbits, B: int, share: slice):
+        super().__init__(randbits)
+        self.B, self.share = B, share
+
+    def per_proof(self, B: int, count: int, reduce: bool = True) -> list[list[int]]:
+        if B != self.share.stop - self.share.start:
+            raise ValueError(f"a stage of {B} proofs, the share holds "
+                             f"{self.share.stop - self.share.start}")
+        return super().per_proof(self.B, count, reduce)[self.share]
 
 
 def _mont_scalar(v: int, device):
@@ -179,6 +202,7 @@ class ProverPipeline:
         ]
         self._static = None
         self._srs_table = None
+        self._srs_shard = None
         self._tape = None
         self._lookup_tapes = None
 
@@ -236,14 +260,34 @@ class ProverPipeline:
             self._srs_table = msm_mod.fixed_base_table(gx, gy, gz, field="fq")
         return self._srs_table
 
-    def commit_coeff_rows(self, coeffs_mont, blinds: list[int]) -> list[VestaPoint]:
+    def commit_coeff_rows(self, coeffs_mont, blinds: list[int], group=None) -> list[VestaPoint]:
         """Commit each row of (C, n, 16) Montgomery coefficients — ONE
-        multi-column fixed-base MSM over the shared SRS for all C columns."""
-        plain = L.from_mont(coeffs_mont, L.FP)
-        outs = msm_mod.msm_fixed_multi(self.srs_table(), plain, field="fq")
+        multi-column fixed-base MSM over the shared SRS for all C columns.
+        With `group` (parallel/sharded.py::make_group), the model-parallel
+        commit: ONE MSM's points sharded over the ranks, each rank reducing
+        its block of the SRS and of every column, the partials gathered and
+        folded (sharded_msm_multi); every rank holds the same coefficients
+        and gets the same points."""
+        if group is None:
+            outs = msm_mod.msm_fixed_multi(self.srs_table(), L.from_mont(coeffs_mont, L.FP),
+                                           field="fq")
+        else:
+            outs = self._msm_sharded(coeffs_mont, group)
         pts = ec.points_from_device((outs[:, 0], outs[:, 1], outs[:, 2]), VestaPoint)
         w = get_params(self.k).w
         return [pt + w * b if b else pt for pt, b in zip(pts, blinds)]
+
+    def _msm_sharded(self, coeffs_mont, group):
+        """This rank's block of the SRS (cached) and of every column through
+        sharded_msm_multi: (C, 3, 16) Jacobian, replicated."""
+        from ..parallel import sharded
+
+        sl = group.shard(self.n)
+        key = (group.rank, group.world)
+        if self._srs_shard is None or self._srs_shard[0] != key:
+            self._srs_shard = (key, tuple(self._t(a[sl]) for a in srs_device(self.k)))
+        plain = L.from_mont(coeffs_mont[:, sl].contiguous(), L.FP)
+        return sharded.sharded_msm_multi(group, *self._srs_shard[1], plain, field="fq")
 
     # --- permutation grand products ------------------------------------
     def _grand_products(self, num, den):
@@ -272,7 +316,7 @@ class ProverPipeline:
         st = self.static_tables()
         n, u = self.n, self.u
         B, nc = cols_vb.shape[0], len(self.chunks)
-        rand_rows = self._t(np.stack([rand.mont_rows(n - u - 1) for _ in range(B * nc)]))
+        rand_rows = self._t(rand.mont_rows(B, nc, n - u - 1))
         beta_m = self._mont_per_proof(betas)
         gamma_m = self._mont_per_proof(gammas)
         perm_index = {c: j for j, c in enumerate(self.pk.vk.perm_cols)}
@@ -340,7 +384,7 @@ class ProverPipeline:
         in turn. All inputs (B, L, n, 16) Montgomery."""
         n, u = self.n, self.u
         B, nlk = a_vb.shape[:2]
-        rand_rows = self._t(np.stack([rand.mont_rows(n - u - 1) for _ in range(B * nlk)]))
+        rand_rows = self._t(rand.mont_rows(B, nlk, n - u - 1))
         beta_m = self._mont_per_proof(betas)[:, None]
         gamma_m = self._mont_per_proof(gammas)[:, None]
         num = L.mont_mul(L.add(a_vb, beta_m, L.FP), L.add(s_vb, gamma_m, L.FP), L.FP)
@@ -426,13 +470,14 @@ def create_proof(pk: ProvingKey, circuit, instance: list[Fp], *, device="cuda",
     asks for "cpu"). Every blind comes from `randbits`; `timer` (a
     StageTimer) records per-stage wall times; `ipa` picks the IPA open of
     the multiopen: "native" (the C++ engine on the host) or "device"
-    (plonk/ipa.py::ipa_open_device). Both give the same proof bytes. The
-    stages are those of a lockstep batch of one proof (_batch_phase1)."""
+    (plonk/ipa.py::ipa_open_device; the multiopen is then
+    multiopen_open_device). Both give the same proof bytes. The stages are
+    those of a lockstep batch of one proof (_batch_phase1)."""
     from .hybrid_open import IPA_OPENS, multiopen_open_hybrid
 
     if ipa not in IPA_OPENS:
         raise ValueError(f"ipa must be one of {IPA_OPENS}, not {ipa!r}")
-    st = _batch_phase1(pk, [circuit], [instance], device=device, randbits=randbits,
+    st = _batch_phase1(pk, [circuit], [instance], device=device, rand=_Rand(randbits),
                        timer=timer, batch=False)
     multiopen_open_hybrid(st.pipe, st.all_coeffs_b[0], st.entries_b[0], st.trs[0], randbits,
                           ipa=ipa)
@@ -440,8 +485,19 @@ def create_proof(pk: ProvingKey, circuit, instance: list[Fp], *, device="cuda",
     return st.trs[0].bytes()
 
 
+def multiopen_open_device(pipe: ProverPipeline, all_coeffs, entries, tr, randbits):
+    """The all-device multiopen (taiga_tpu/plonk/prover.py::
+    multiopen_open_device): the hybrid multiopen's device aggregation, then
+    ipa_open_device. Transcript-identical to the reference's under the same
+    randbits (h_blind drawn first, then the open's draws)."""
+    from .hybrid_open import multiopen_open_hybrid
+
+    multiopen_open_hybrid(pipe, all_coeffs, entries, tr, randbits, ipa="device")
+
+
 def create_proofs_batch(pk: ProvingKey, circuits, instances, *, device="cuda",
-                        randbits=secrets.randbits, timer: StageTimer | None = None) -> list[bytes]:
+                        randbits=secrets.randbits, timer: StageTimer | None = None,
+                        group=None) -> list[bytes]:
     """Prove a BATCH of statements of one circuit in lockstep on `device`:
     every device stage runs once over a leading axis of B proofs (their
     columns in one iNTT, one multi-column MSM a commit stage, one
@@ -451,9 +507,41 @@ def create_proofs_batch(pk: ProvingKey, circuits, instances, *, device="cuda",
     calling thread, in the reference's order (stage by stage, proof by
     proof within a stage); a batch of one equals create_proof. `timer`
     records the reference's batch stage names. Returns one proof a
-    statement, in order; each verifies on its own."""
-    st = _batch_phase1(pk, circuits, instances, device=device, randbits=randbits, timer=timer)
-    return _batch_phase2(st, _phase2_draws(st, randbits))
+    statement, in order; each verifies on its own.
+
+    With `group` (parallel/sharded.py::make_group), data-parallel: every
+    rank is given the whole batch, proves its contiguous share on its own
+    device (the group's; `device` is not read) and draws the whole batch's
+    values in the single-process order, keeping its share's; the proofs
+    are then gathered to every rank in batch order. The result equals the
+    ungrouped call's byte for byte; the world must divide B."""
+    if group is not None:
+        return _batch_grouped(pk, circuits, instances, group, randbits, timer)
+    rand = _Rand(randbits)
+    st = _batch_phase1(pk, circuits, instances, device=device, rand=rand, timer=timer)
+    return _batch_phase2(st, _phase2_draws(st, rand))
+
+
+def _batch_grouped(pk: ProvingKey, circuits, instances, group, randbits, timer) -> list[bytes]:
+    """create_proofs_batch(..., group=): this rank's share of the batch on
+    the values it would draw in the whole batch (_ShareRand), then the
+    proofs of every rank gathered in batch order."""
+    from ..parallel import sharded
+
+    B = len(circuits)
+    if len(instances) != B:
+        raise ValueError(f"{B} circuits and {len(instances)} instances")
+    share = group.shard(B)
+    rand = _ShareRand(randbits, B, share)
+    st = _batch_phase1(pk, circuits[share], instances[share], device=group.device, rand=rand,
+                       timer=timer)
+    proofs = _batch_phase2(st, _phase2_draws(st, rand))
+    if len({len(p) for p in proofs}) != 1:
+        raise RuntimeError("the share's proofs differ in length")
+    local = torch.frombuffer(bytearray(b"".join(proofs)), dtype=torch.uint8)
+    local = local.reshape(len(proofs), -1).to(group.device)
+    return [bytes(row.cpu().numpy()) for row in
+            sharded.all_gather(group, local).reshape(B, -1)]
 
 
 def create_proofs_pipelined(jobs, chunk: int = 8, *, device="cuda",
@@ -478,12 +566,13 @@ def create_proofs_pipelined(jobs, chunk: int = 8, *, device="cuda",
     for pk in {id(pk): pk for _, pk, _, _ in pieces}.values():
         get_pipeline(pk, dev).prepare()
     side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    rand = _Rand(randbits)
     results: list[list[bytes]] = [[] for _ in jobs]
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = fut_ji = None
         for ji, pk, cs, insts in pieces:
-            st = _batch_phase1(pk, cs, insts, device=dev, randbits=randbits)
-            draws = _phase2_draws(st, randbits)
+            st = _batch_phase1(pk, cs, insts, device=dev, rand=rand)
+            draws = _phase2_draws(st, rand)
             ready = _hand_over(st, side)
             if fut is not None:
                 results[fut_ji].extend(fut.result())
@@ -527,15 +616,15 @@ class _Phase1:
         self.timer = timer
 
 
-def _phase2_draws(st: _Phase1, randbits):
+def _phase2_draws(st: _Phase1, rand: _Rand):
     """Every value phase 2 of a batch draws, drawn now on the calling
     thread in the order a serial phase 2 draws them: the B h blinds of the
     multiopen, then each proof's native IPA open (native_open.draws)."""
     from .native_open import draws
 
     B, k = len(st.trs), st.pipe.k
-    h_blinds = [randbits(300) % P for _ in range(B)]
-    tails = [[randbits(300) for _ in range(draws(k))] for _ in range(B)]
+    h_blinds = [b for (b,) in rand.per_proof(B, 1)]
+    tails = rand.per_proof(B, draws(k), reduce=False)
     return h_blinds, tails
 
 
@@ -550,14 +639,14 @@ def _batch_phase2(st: _Phase1, draws) -> list[bytes]:
     return [tr.bytes() for tr in st.trs]
 
 
-def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, timer=None,
+def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, rand: _Rand, timer=None,
                   batch: bool = True) -> _Phase1:
     """The device-heavy front of a lockstep batch, witness synthesis through
-    the query evaluations, for B statements of one circuit. Draws, all from
-    `randbits`, stage by stage and proof by proof within a stage: the
-    witness fillers, the advice blinds, the lookup rows (by proof, lookup,
-    A' then S'), the A' then the S' blinds, the z rows and blinds, the
-    lookup z rows and blinds, the h blinds. `batch` picks the stage names:
+    the query evaluations, for B statements of one circuit. Draws, all
+    through `rand` (_Rand.per_proof), stage by stage and proof by proof
+    within a stage: the witness fillers, the advice blinds, the lookup rows
+    (by proof, lookup, A' then S'), the A' then the S' blinds, the z rows
+    and blinds, the lookup z rows and blinds, the h blinds. `batch` picks the stage names:
     the reference's batch names, or its single-proof names."""
     vk = pk.vk
     n, u = vk.n, vk.usable_rows
@@ -567,7 +656,6 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
     B = len(circuits)
     if B < 1 or len(instances) != B:
         raise ValueError(f"{B} circuits and {len(instances)} instances: need one each, B >= 1")
-    rand = _Rand(randbits)
     st_t = timer if timer is not None else _NoTimer()
     suffix = " (batch)" if batch else ""
     mark = lambda name: st_t.mark(name + suffix)
@@ -578,12 +666,12 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
 
     # --- synthesize the witnesses --------------------------------------
     advices = []
-    for circuit in circuits:
+    fillers = rand.per_proof(B, cs.num_advice * (n - u))
+    for circuit, fill in zip(circuits, fillers):
         builder = CircuitBuilder(cs, vk.k, "prove")
         circuit.synthesize(builder, pk.config)
-        for col in builder.advice:
-            for i in range(u, n):
-                col[i] = rand()
+        for c, col in enumerate(builder.advice):
+            col[u:n] = fill[c * (n - u) : (c + 1) * (n - u)]
         advices.append(builder.advice)
     mark("witness synthesis")
 
@@ -614,7 +702,7 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
     inst_vb = pipe._t(np.stack([L.FP.array_to_mont(inst + [0] * (n - len(inst)))[None]
                                 for inst in insts]))  # (B, 1, n, 16)
     advice_cb = pipe.values_to_coeffs(advice_vb)
-    advice_blinds = [[rand() for _ in range(ncols)] for _ in range(B)]
+    advice_blinds = rand.per_proof(B, ncols)
     commit(advice_cb, advice_blinds)
     mark("advice commit")
 
@@ -637,15 +725,15 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
             raise ValueError(f"lookup failure: input value not in table (proofs {bad})")
         # blinding rows by (proof, lookup), A' then S': the host prover's
         # order within a proof
-        rand_rows = [rand.mont_rows(n - u) for _ in range(2 * B * nlk)]
-        lk_ap_vb = torch.cat([ap_u, pipe._t(np.stack(rand_rows[0::2]))], dim=1)
-        lk_sp_vb = torch.cat([sp_u, pipe._t(np.stack(rand_rows[1::2]))], dim=1)
+        rand_rows = rand.mont_rows(B, 2 * nlk, n - u)
+        lk_ap_vb = torch.cat([ap_u, pipe._t(rand_rows[0::2])], dim=1)
+        lk_sp_vb = torch.cat([sp_u, pipe._t(rand_rows[1::2])], dim=1)
         lk_ap_vb = lk_ap_vb.reshape(B, nlk, n, L.NLIMBS)
         lk_sp_vb = lk_sp_vb.reshape(B, nlk, n, L.NLIMBS)
         both_cb = pipe.values_to_coeffs(torch.cat([lk_ap_vb, lk_sp_vb], dim=1))
         lk_ap_cb, lk_sp_cb = both_cb[:, :nlk], both_cb[:, nlk:]
-        lk_ap_blinds = [[rand() for _ in range(nlk)] for _ in range(B)]
-        lk_sp_blinds = [[rand() for _ in range(nlk)] for _ in range(B)]
+        lk_ap_blinds = rand.per_proof(B, nlk)
+        lk_sp_blinds = rand.per_proof(B, nlk)
         # rows per proof A'_0..A'_L, S'_0..S'_L; transcript A'_0, S'_0, A'_1, ...
         commit(both_cb, [a + s for a, s in zip(lk_ap_blinds, lk_sp_blinds)],
                order=[j for li in range(nlk) for j in (li, nlk + li)])
@@ -668,7 +756,7 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
     mark("perm grand products")
     z_cb = pipe.values_to_coeffs(z_vb)
     nz = z_vb.shape[1]
-    z_blinds = [[rand() for _ in range(nz)] for _ in range(B)]
+    z_blinds = rand.per_proof(B, nz)
     lk_z_cb = None
     lk_z_blinds = [[] for _ in range(B)]
     if lookups:
@@ -677,7 +765,7 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
         lk_z_vb = pipe.lookup_z_values_batch(lk_a_vb, lk_s_vb, lk_ap_vb, lk_sp_vb, betas,
                                              gammas, rand)
         lk_z_cb = pipe.values_to_coeffs(lk_z_vb)
-        lk_z_blinds = [[rand() for _ in range(nlk)] for _ in range(B)]
+        lk_z_blinds = rand.per_proof(B, nlk)
         commit(torch.cat([z_cb, lk_z_cb], dim=1),
                [zb + lb for zb, lb in zip(z_blinds, lk_z_blinds)])
     else:
@@ -704,7 +792,7 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, randbits, time
         raise AssertionError("quotient degree overflow")
     mark("quotient eval")
     h_pieces_b = h_all_b[:, : NUM_H_PIECES * n].reshape(B, NUM_H_PIECES, n, L.NLIMBS)
-    h_blinds = [[rand() for _ in range(NUM_H_PIECES)] for _ in range(B)]
+    h_blinds = rand.per_proof(B, NUM_H_PIECES)
     commit(h_pieces_b, h_blinds)
     mark("h commit")
 

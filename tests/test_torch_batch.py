@@ -34,6 +34,7 @@ from taiga_tpu_torch.core.compliance import ComplianceInfo
 from taiga_tpu_torch.core.proving import prove_resource_logics_batch
 from taiga_tpu_torch.core.ptx import ComplianceVerifyingInfo
 from taiga_tpu_torch.crypto.fields import Fp
+from taiga_tpu_torch.parallel.dryrun import FibCircuit
 from taiga_tpu_torch.plonk import keygen as TK, prover as TP, verifier as TV
 from taiga_tpu_torch.plonk.circuit import Circuit
 from taiga_tpu_torch.plonk.protocol import NUM_H_PIECES, num_chunks
@@ -101,42 +102,6 @@ def _range_circuit(base, table: int):
 JNibble, TNibble = _range_circuit(JCircuit, 16), _range_circuit(Circuit, 16)
 NIBBLES = [0, 1, 7, 15, 8, 4, 4, 12]
 NIB_INST = [0, sum(NIBBLES)]
-
-
-class FibCircuit(Circuit):
-    """tests/test_plonk.py's FibCircuit on the port's Circuit: no lookups,
-    a vanilla gate, copies and three instance cells."""
-
-    NUM_FIXED, NUM_ADVICE, NUM_INSTANCE, STEPS = 5, 3, 1, JFibCircuit.STEPS
-
-    def __init__(self, a0=None, a1=None):
-        self.a0, self.a1 = a0, a1
-
-    configure = classmethod(JFibCircuit.configure.__func__)
-
-    def synthesize(self, builder, config):
-        def mul_add(x_cell, y_cell):
-            row = builder.alloc_rows(1)
-            builder.assign_fixed(1, row, 1)
-            builder.assign_fixed(2, row, 1)
-            builder.assign_fixed(3, row, Fp(-1))
-            xa = builder.assign_advice(0, row, x_cell.value)
-            ya = builder.assign_advice(1, row, y_cell.value)
-            builder.copy(xa, x_cell)
-            builder.copy(ya, y_cell)
-            val = None
-            if builder.known(xa, ya):
-                val = Fp(xa.value) * Fp(ya.value) + Fp(ya.value)
-            return builder.assign_advice(2, row, val)
-
-        row = builder.alloc_rows(1)
-        x = builder.assign_advice(0, row, self.a0)
-        y = builder.assign_advice(1, row, self.a1)
-        builder.constrain_instance(x, 0)
-        builder.constrain_instance(y, 1)
-        for _ in range(self.STEPS):
-            x, y = y, mul_add(x, y)
-        builder.constrain_instance(y, 2)
 
 
 FIB_INST = [3, 4, _expected_out(3, 4).v]
