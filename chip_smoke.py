@@ -117,13 +117,20 @@ exit code and no result line:
  10. (run after 9) the last modules: (a) the group law of ops/ec.py at
      4,096 lanes, on both fields, with identity, P = Q and P = -Q lanes:
      ec_add (K6), ec_double (the doubling kernel) and ec_scalar_mul_shared
-     (K7 and the doubling, 255 steps) against their plain versions bit for
-     bit and the host group law on sampled lanes; K6, K7 and the doubling
-     timed at the widths of their main path, (f)'s bitserial MSM, and the
-     ladder timed; (b) the list-based IPA open (host-int coefficients,
-     opened by ipa_open_device) of a random polynomial at k = 13, whose
-     bytes must equal ipa_open_device's and ipa_open_native's under one
-     seed, verified and refused with a0 changed, timed, with its launches
+     (one ec_ladder launch: K7 chained with the doubling, 255 steps)
+     against their plain versions bit for bit and the host group law on
+     sampled lanes; ec_ladder against ec_ladder_plain on both fields in
+     both bit modes, a scalar shared by 4,096 lanes (0, 1, q and a random
+     one) and a scalar a lane over (f)'s 2 x 1,024 lanes (0, 1, q - 1, q
+     and 2^254 among random ones), identity lanes included, and the host
+     group law on sampled lanes; K7 and the doubling single-step bit for
+     bit at 1,024, 2,048 and 1,048,576 lanes; then K6 at (f)'s width, K7
+     and the doubling at those three widths and the ladder (shared at
+     4,096 lanes, a scalar a lane at 2 x 1,024 and 1 x 1,024) timed, each
+     ladder with one chain's length in product stages; (b) the list-based
+     IPA open (host-int coefficients, opened by ipa_open_device) of a
+     random polynomial at k = 13, whose bytes must equal ipa_open_device's
+     and ipa_open_native's under one seed, verified and refused with a0 changed, timed, with its launches
      counted (zeroed just before, read after: the "ipa_list" path);
      multiopen_open_device is the hybrid multiopen with the device open,
      which phase 5's device-IPA proof runs; (d) the Poseidon kernel at
@@ -134,7 +141,9 @@ exit code and no result line:
      the card (keygen.commit_columns) against the host engine's keygen,
      verifying keys equal, both timed; (f) the sharded
      layer at world 1 over NCCL in this process: sharded_msm_multi
-     (Pippenger and the bitserial K7 ladder), ntt_mesh at k = 13,
+     (Pippenger, and the bitserial ladder: one ec_ladder launch, no K7 or
+     doubling launch, 10 of K6; equal to Pippenger's and the host engine's
+     MSM), ntt_mesh at k = 13,
      batch_hash_step, sharded_point_sum and prove_step against their
      unsharded counterparts, and a grouped create_proofs_batch of 2
      compliance proofs against the ungrouped batch byte for byte (the
@@ -193,8 +202,9 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "tape_eval": ("k_tape_eval",),
     "ec_fold_shared": ("k_ec_fold_shared",),
     "ec_horner": ("k_ec_horner",),
-    "ec_add": ("k_ec_add_jac<false>", "k_ec_add_jacILb0E"),
-    "ec_add_select": ("k_ec_add_jac<true>", "k_ec_add_jacILb1E"),
+    "ec_add": ("k_ec_add_jac",),
+    "ec_add_select": ("k_jac_add_select",),
+    "ec_ladder": ("k_jac_ladder",),
     "ec_double": ("k_ec_double_jac",),
     "poseidon": ("k_poseidon_permute",),
 }
@@ -988,11 +998,16 @@ KERNELS = [
      "taiga_tpu/ops/ff_kernels.py:623", ("device", "ipa_list")),
     ("ec_add", "ec_add_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
      "taiga_tpu/ops/ff_kernels.py:483", ("parallel",)),
+    # K7 and the doubling single-step: on no path since ec_ladder chains them
     ("ec_add_select", "ec_add_select_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
-     "taiga_tpu/ops/ff_kernels.py:448", ("parallel",)),
+     "taiga_tpu/ops/ff_kernels.py:448", ()),
+    # K7 chained with the doubling: the whole double-and-add ladder
+    ("ec_ladder", "ec_ladder_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
+     "taiga_tpu/ops/ec.py:144-161 and taiga_tpu/parallel/sharded.py:58-86 (the ladders over "
+     "K7 and the doubling)", ("parallel",)),
     # replace XLA programs, not Pallas calls
     ("ec_double", "ec_double_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
-     "none: the XLA program taiga_tpu/ops/ec.py:75", ("parallel",)),
+     "none: the XLA program taiga_tpu/ops/ec.py:75", ()),
     ("poseidon", "permute_batch", "taiga_tpu_torch/csrc/poseidon.cu",
      "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:62", ("poseidon", "parallel")),
 ]
@@ -1901,26 +1916,60 @@ print(json.dumps(out))
 
 # --- phase 10: the last modules -----------------------------------------------
 
-W_GROUP = N // 2              # lanes of the group-law checks
-# 10f's bitserial MSM, the main path of K6, K7 and the doubling: K7 over
-# BITS_COLS x BITS_POINTS lanes, the doubling over BITS_POINTS, K6's first
-# tree level over BITS_COLS x BITS_POINTS / 2
+W_GROUP = N // 2              # lanes of the group-law checks, and of the shared ladder
+# 10f's bitserial MSM, the main path of ec_ladder (the ladder over
+# BITS_COLS x BITS_POINTS lanes, a scalar a lane) and K6 (its halving tree,
+# first level over BITS_COLS x BITS_POINTS / 2 lanes)
 BITS_POINTS, BITS_COLS = 1024, 2
 SAMPLED = (0, 1, 2, 3, 4, 5, 6, 7, 1000, W_GROUP - 1)  # lanes held against the host
+# K7 and the doubling single-step: the bitserial MSM's widths before its
+# ladder was one launch, and the width phase 4 times K2 and K6 at
+SINGLE_WIDTHS = (BITS_POINTS, BITS_COLS * BITS_POINTS, W_EC_ADD)
+LADDER_BITS = 255
 POSEIDON_STATES = 16384       # bench.py tier 3's n
 HASH_SHAPE = (4096, 8)        # bench.py tier 2's (batch, length)
 MERKLE_LEAVES = 1 << 14
 POSEIDON_PRODUCTS = 8 * 18 + 56 * 12  # Montgomery products a permutation: full + partial rounds
 
 
-def phase_group_law(rng, dev, smi: str):
+def ladder_work(cols: list[list[int]], bits: int = LADDER_BITS) -> tuple[int, int]:
+    """(products, product stages) of the ladders [s_cj] P_j over the
+    columns' scalars s_cj (C lists of n). Products are what the function
+    needs on this data, the bound's count: each point's doublings (7
+    products) once, up to the highest set bit of its columns' scalars, and
+    a general add (16 products) at every set bit of a lane after its first,
+    which adds to the identity. Stages are one chain's as ec_ladder runs
+    it, the longest lane's: a doubling's 3 after every bit but the last
+    (every column redoes its points' doublings), and 2 more where the add
+    runs, 5 at a last set bit."""
+    mask = (1 << bits) - 1
+    products, stages = 0, 0
+    for j in range(len(cols[0])):
+        lane = [col[j] & mask for col in cols]
+        products += 7 * max(max(s.bit_length() for s in lane) - 1, 0)
+        for s in lane:
+            adds = max(bin(s).count("1") - 1, 0)
+            products += 16 * adds
+            last = s >> (bits - 1) & 1 and adds
+            stages = max(stages, 3 * (bits - 1) + 2 * adds + (3 if last else 0))
+    return products, stages
+
+
+def phase_group_law(rng, gen, dev, smi: str):
     """10a: ec.ec_add (K6), ec.ec_double (the doubling kernel) and
-    ec.ec_scalar_mul_shared (K7 and the doubling, 255 steps) at 4,096
-    lanes on both fields, with identity, P = Q and P = -Q lanes
-    (jacobian_inputs' lanes 0-6), against their plain versions bit for bit
-    and against the host group law on sampled lanes; K6, K7 and the
-    doubling timed at the widths of their main path, 10f's bitserial MSM,
-    and the ladder timed (CUDA events)."""
+    ec.ec_scalar_mul_shared (one ec_ladder launch) at 4,096 lanes on both
+    fields, with identity, P = Q and P = -Q lanes (jacobian_inputs' lanes
+    0-6), against their plain versions bit for bit and against the host
+    group law on sampled lanes; ec_ladder in both bit modes on both fields
+    bit for bit against ec_ladder_plain: one scalar shared by the 4,096
+    lanes (0, 1, q, whose last add meets the negation of the sum, and a
+    random one) and one a lane over BITS_COLS x BITS_POINTS (0, 1, q - 1, q
+    and 2^254 among random ones), with the host group law on sampled lanes;
+    K7 and the doubling single-step at SINGLE_WIDTHS bit for bit; then K6
+    at its main path's width, K7 and the doubling at SINGLE_WIDTHS, and the
+    ladder (shared at 4,096 lanes; a scalar a lane at BITS_COLS x
+    BITS_POINTS, its main path, and at 1 x BITS_POINTS) timed with CUDA
+    events."""
     import torch
     from taiga_tpu_torch.ops import ec, ff_kernels as FK, limbs as L
 
@@ -1929,10 +1978,11 @@ def phase_group_law(rng, dev, smi: str):
     for field in ("fp", "fq"):
         spec = L.FIELDS[field]
         curve = curve_of(field)
+        q = curve.SCALAR.MODULUS
         p1, p2 = jacobian_inputs(rng, field, dev)
         P = tuple(v[:, :W_GROUP].T.contiguous() for v in p1)  # (B, 16) rows
         Q = tuple(v[:, :W_GROUP].T.contiguous() for v in p2)
-        s = int(rng.integers(1, 1 << 62)) ** 5 % curve.SCALAR.MODULUS
+        s = int(rng.integers(1, 1 << 62)) ** 5 % q
         sl = L.int_to_limbs(s)
         got = (ec.ec_add(P, Q, spec), ec.ec_double(P, spec), ec.ec_scalar_mul_shared(P, sl, spec))
         with FK.plain_versions():
@@ -1944,43 +1994,138 @@ def phase_group_law(rng, dev, smi: str):
         for what, g, w in zip(("ec_add", "ec_double", "ec_scalar_mul_shared"), got,
                               want + (ladder,)):
             err = max(err, compare(f"ec.{what}[{field}]", g, w))
-        for lane in SAMPLED:
-            a, b = (to_affine(field, *(v.T for v in pt), lane, jacobian=True) for pt in (P, Q))
+        hosts = {lane: tuple(to_affine(field, *(v.T for v in pt), lane, jacobian=True)
+                             for pt in (P, Q)) for lane in SAMPLED}
+        for lane, (a, b) in hosts.items():
             outs = [to_affine(field, *(v.T for v in g), lane, jacobian=True) for g in got]
             if outs != [a + b, a + a, a * s]:
                 raise AssertionError(f"ec[{field}]: lane {lane} disagrees with the host group law")
+
+        # ec_ladder, a shared scalar: the base is P's 4,096 lanes (identity
+        # in lanes 0 and 2)
+        base = [v.T.contiguous() for v in P]
+        for sv in (0, 1, q):
+            sl_t = torch.as_tensor(L.int_to_limbs(sv), device=dev)
+            got_l = FK.ec_ladder_lm(*base, sl_t, LADDER_BITS, field)
+            with FK.plain_versions():
+                want_l = FK.ec_ladder_lm(*base, sl_t, LADDER_BITS, field)
+            err = max(err, compare(f"ec_ladder[{field}, shared s={'q' if sv == q else sv}]",
+                                   got_l, want_l))
+            for lane, (a, _) in hosts.items():
+                if to_affine(field, *got_l, lane, jacobian=True) != a * sv:
+                    raise AssertionError(f"ec_ladder[{field}, shared]: lane {lane} is not [s] P")
+            if sv == 0 and any(bool(v.any()) for v in got_l):
+                raise AssertionError(f"ec_ladder[{field}]: the scalar 0 does not give (0, 0, 0)")
+        # a scalar a lane, (C, n, 16): lane c * n + j is [s_cj] P_j
+        nb = BITS_POINTS
+        bl = [v[:, :nb].contiguous() for v in base]
+        cols = [[int.from_bytes(rng.bytes(32), "little") >> 1 for _ in range(nb)]
+                for _ in range(BITS_COLS)]
+        for j, sv in enumerate((0, 1, q - 1, q, 1 << 254)):
+            cols[0][3 + j] = sv  # lanes 3..7: beside the identity lanes 0 and 2
+        cols[1][2] = 0
+        scal = torch.as_tensor(np.stack([L.ints_to_limbs(c) for c in cols]), device=dev)
+        got_l = FK.ec_ladder_lm(*bl, scal, LADDER_BITS, field)
+        with FK.plain_versions():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want_l = FK.ec_ladder_lm(*bl, scal, LADDER_BITS, field)
+            torch.cuda.synchronize()
+            ms_ladder_plain = (time.perf_counter() - t0) * 1e3  # fq's is the row's plain_ms
+        err = max(err, compare(f"ec_ladder[{field}, a scalar a lane]", got_l, want_l))
+        for c in range(BITS_COLS):
+            for j in SAMPLED[:9]:
+                a = hosts[j][0]
+                if to_affine(field, *got_l, c * nb + j, jacobian=True) != a * cols[c][j]:
+                    raise AssertionError(f"ec_ladder[{field}, a scalar a lane]: lane "
+                                         f"({c}, {j}) is not [s] P")
+        if any(bool(v[:, nb + 2].any()) for v in got_l):
+            raise AssertionError(f"ec_ladder[{field}]: a lane whose bits are 0 is not (0, 0, 0)")
         if field == "fq":
             ms_d = cuda_ms(lambda: ec.ec_double(P, spec), 20)
-            ms_l = cuda_ms(lambda: ec.ec_scalar_mul_shared(P, sl, spec), 3)
-            # K6, K7 and the doubling at the widths their main path gives
-            # them (10f's bitserial MSM; K7's bits drawn at random)
-            w6, w7, wd = BITS_COLS * BITS_POINTS // 2, BITS_COLS * BITS_POINTS, BITS_POINTS
-            lm = [v[:wd].T.contiguous() for v in P]
-            ms_dk = cuda_ms(lambda: FK.ec_double_lm(*lm, "fq"), 50)
-            with FK.plain_versions():
-                pms = cuda_ms(lambda: FK.ec_double_lm(*lm, "fq"), 3)
-            bits = torch.as_tensor(rng.integers(0, 2, (1, w7)), dtype=torch.int32, device=dev)
-            p6, q6, p7, q7 = ([v[:w].T.contiguous() for v in pt]
-                              for w in (w6, w7) for pt in (P, Q))
-            for name, fn, w, sel_bytes in (
-                    ("ec_add", lambda: FK.ec_add_lm(*p6, *q6, "fq"), w6, 0),
-                    ("ec_add_select", lambda: FK.ec_add_select_lm(*p7, *q7, bits, "fq"), w7, 4)):
-                # as phase 4 reckons them: 16 products a lane (the general add)
-                b = bound_ms((9 * fe + sel_bytes) * w, 16 * MM_IMADS * w)
-                res[name] = dict(ms=cuda_ms(fn, 50), bound=b, B=w)
-                log(f"{name} at B={w}: {res[name]['ms']:.6f} ms per launch (bound "
-                    f"{b[0]:.6f} ms by {b[1]})")
-            res["ec_double"] = dict(err=0, ms=ms_dk, plain_ms=pms, B=wd,
-                                    bound=bound_ms(6 * fe * wd, 7 * MM_IMADS * wd))
-            log(f"ec_double kernel at B={wd}: {ms_dk:.6f} ms per launch (plain {pms:.3f} "
-                f"ms; bound {res['ec_double']['bound'][0]:.6f} ms by "
-                f"{res['ec_double']['bound'][1]}); ec.ec_double at B={W_GROUP} with its two "
-                f"transposes {ms_d:.6f} ms; the 255-step ladder {ms_l:.3f} ms (plain, both helpers and "
-                f"the ladder: {t_plain:.2f} s)   [{smi}]")
-    res["ec_double"]["err"] = err
-    log(f"10a group law: ec_add (K6), ec_double and ec_scalar_mul_shared (K7 + doubling) equal "
+            ms_l = cuda_ms(lambda: ec.ec_scalar_mul_shared(P, sl, spec), 5)
+            fq_in = dict(P=P, Q=Q, s=s, base=base, scal=scal, cols=cols, t_plain=t_plain,
+                         ladder_plain_ms=ms_ladder_plain)
+            log(f"ec.ec_double at B={W_GROUP} with its two transposes {ms_d:.6f} ms; "
+                f"ec.ec_scalar_mul_shared at B={W_GROUP} (one ec_ladder launch and the "
+                f"transposes) {ms_l:.3f} ms (plain, the three helpers: {t_plain:.2f} s)   [{smi}]")
+    log(f"10a group law: ec_add (K6), ec_double and ec_scalar_mul_shared (ec_ladder) equal "
         f"their plain versions on fp and fq at B={W_GROUP} (identity, P = Q, P = -Q lanes) and "
-        f"the host group law on lanes {SAMPLED}")
+        f"the host group law on lanes {SAMPLED}; ec_ladder equal to ec_ladder_plain on fp and "
+        f"fq with a shared scalar (0, 1, q, random) at B={W_GROUP} and a scalar a lane (0, 1, "
+        f"q - 1, q, 2^254 among random) at {BITS_COLS} x {BITS_POINTS}, and the host group law "
+        f"on sampled lanes")
+
+    # K7 and the doubling single-step: bit for bit and timed at SINGLE_WIDTHS
+    wide = [wide_fe(gen, SINGLE_WIDTHS[-1], dev) for _ in range(6)]
+    half = torch.randint(0, 2, (1, SINGLE_WIDTHS[-1]), generator=gen, dtype=torch.int32,
+                         device=dev)
+    singles = {"ec_add_select": {}, "ec_double": {}}
+    for B in SINGLE_WIDTHS:
+        pts = [v[:, :B].contiguous() for v in wide]
+        sel = half[:, :B].contiguous()
+        n_sel = int(sel.sum())
+        for name, fn, bound in (
+                ("ec_add_select", lambda: FK.ec_add_select_lm(*pts, sel, "fq"),
+                 bound_ms(fe * (6 * B + 3 * n_sel) + 4 * B, 16 * MM_IMADS * n_sel)),
+                ("ec_double", lambda: FK.ec_double_lm(*pts[:3], "fq"),
+                 bound_ms(6 * fe * B, 7 * MM_IMADS * B))):
+            got = fn()
+            with FK.plain_versions():
+                err = max(err, compare(f"{name}[fq, B={B}]", got, fn()))
+                pms = cuda_ms(fn, 3 if B <= 4096 else 1)
+            ms = cuda_ms(fn, 50 if B <= 4096 else 20)
+            singles[name][B] = dict(ms=ms, plain_ms=pms, bound=bound)
+            log(f"{name} single-step at B={B}: {ms:.6f} ms per launch (plain {pms:.3f} ms; "
+                f"bound {bound[0]:.6f} ms by {bound[1]})")
+    del wide, half
+    res["ec_double"] = dict(err=err, **singles["ec_double"][BITS_POINTS], B=BITS_POINTS,
+                            widths=singles["ec_double"])
+    res["ec_add_select"] = dict(widths=singles["ec_add_select"])
+
+    # K6 at its main path's width (10f's first tree level)
+    P, Q = fq_in["P"], fq_in["Q"]
+    w6 = BITS_COLS * BITS_POINTS // 2
+    p6, q6 = ([v[:w6].T.contiguous() for v in pt] for pt in (P, Q))
+    b6 = bound_ms(9 * fe * w6, 16 * MM_IMADS * w6)  # as phase 4 reckons it
+    res["ec_add"] = dict(ms=cuda_ms(lambda: FK.ec_add_lm(*p6, *q6, "fq"), 50), bound=b6, B=w6)
+    log(f"ec_add at B={w6}: {res['ec_add']['ms']:.6f} ms per launch (bound {b6[0]:.6f} ms by "
+        f"{b6[1]})")
+
+    # the ladder timed: shared at W_GROUP lanes, a scalar a lane at
+    # BITS_COLS x BITS_POINTS (10f's) and at 1 x BITS_POINTS, which says what
+    # redoing each point's doublings in every column costs
+    s, base, scal, cols = fq_in["s"], fq_in["base"], fq_in["scal"], fq_in["cols"]
+    sl_t = torch.as_tensor(L.int_to_limbs(s), device=dev)
+    ladders = {}
+    for what, n, C, fn, scalars in (
+            ("shared", W_GROUP, 1, lambda: FK.ec_ladder_lm(*base, sl_t, LADDER_BITS, "fq"),
+             [[s] * W_GROUP]),
+            ("lanes", BITS_POINTS, BITS_COLS,
+             lambda: FK.ec_ladder_lm(*(v[:, :BITS_POINTS].contiguous() for v in base), scal,
+                                     LADDER_BITS, "fq"), cols),
+            ("lanes", BITS_POINTS, 1,
+             lambda: FK.ec_ladder_lm(*(v[:, :BITS_POINTS].contiguous() for v in base),
+                                     scal[:1].contiguous(), LADDER_BITS, "fq"), cols[:1])):
+        products, stages = ladder_work(scalars)
+        nbytes = 3 * fe * n + (fe if what == "shared" else fe * C * n) + 3 * fe * C * n
+        bound = bound_ms(nbytes, products * MM_IMADS)
+        ms = cuda_ms(fn, 10)
+        ladders[(what, C, n)] = dict(ms=ms, bound=bound, stages=stages)
+        log(f"ec_ladder, {'a shared scalar' if what == 'shared' else 'a scalar a lane'}, "
+            f"{C} x {n} lanes: {ms:.6f} ms per launch (bound {bound[0]:.6f} ms by {bound[1]}; "
+            f"one chain: {stages} product stages, {ms * 1e3 / stages:.4f} us a stage)")
+    main = ladders[("lanes", BITS_COLS, BITS_POINTS)]
+    pms = fq_in["ladder_plain_ms"]  # the plain run that fq's comparison above made
+    shared = ladders[("shared", 1, W_GROUP)]
+    res["ec_ladder"] = dict(err=err, ms=main["ms"], plain_ms=pms, B=(BITS_COLS, BITS_POINTS),
+                            bound=main["bound"], stages=main["stages"],
+                            shared_ms=shared["ms"], shared_bound=shared["bound"],
+                            shared_stages=shared["stages"])
+    log(f"ec_ladder plain version at {BITS_COLS} x {BITS_POINTS} (the loop of 255 steps): "
+        f"{pms:.3f} ms; a scalar a lane over {BITS_COLS} columns against 1 (the doublings "
+        f"redone per column): {main['ms']:.6f} / "
+        f"{ladders[('lanes', 1, BITS_POINTS)]['ms']:.6f} ms   [{smi}]")
     return res
 
 
@@ -2158,6 +2303,8 @@ def phase_parallel(pk, seed: int, dev, smi: str):
     from taiga_tpu_torch.crypto.curves import VestaPoint
     from taiga_tpu_torch.ops import ec, limbs as L, msm as TM, ntt, poseidon_kernel as PK
     from taiga_tpu_torch.parallel import sharded as SH
+    from taiga_tpu_torch.native import hostops as H
+    from taiga_tpu_torch.plonk.native_open import _msm_point
     from taiga_tpu_torch.plonk.prover import create_proofs_batch
     from taiga_tpu_torch.plonk.srs import srs_device
 
@@ -2174,7 +2321,7 @@ def phase_parallel(pk, seed: int, dev, smi: str):
                               device=dev)
         msgs = torch.as_tensor(L.FP.array_to_mont([r.getrandbits(254) for _ in range(4096 * 8)])
                                .reshape(4096, 8, 16), device=dev)
-        nb = BITS_POINTS  # 255 K7 launches over BITS_COLS x nb lanes, 254 doublings over nb
+        nb = BITS_POINTS  # one ec_ladder launch over BITS_COLS x nb lanes, then K6's tree
         built = [ComplianceInfo.random(random.Random(seed + 100 + i)).build() for i in range(2)]
         insts = [pis.to_instance() for pis, _ in built]
         circuits = [c for _, c in built]
@@ -2192,8 +2339,11 @@ def phase_parallel(pk, seed: int, dev, smi: str):
 
         zero_counts()
         pip = timed("sharded_msm_multi", lambda: SH.sharded_msm_multi(group, gx, gy, gz, scal))
+        before = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
         bits = timed("sharded_msm_multi bitserial", lambda: SH.sharded_msm_multi(
             group, gx[:nb], gy[:nb], gz[:nb], scal[:, :nb].contiguous(), strategy="bitserial"))
+        in_bits = {name: _wrapper(attr).launches - before[name]
+                   for name, attr, _, _, _ in KERNELS}
         mesh = timed("ntt_mesh", lambda: ntt.ntt_mesh(group, vec, K, "fp"))
         hashes = timed("batch_hash_step", lambda: SH.batch_hash_step(group, msgs))
         psum = timed("sharded_point_sum", lambda: SH.sharded_point_sum(group, gx, gy, gz))
@@ -2206,8 +2356,16 @@ def phase_parallel(pk, seed: int, dev, smi: str):
         if not torch.equal(pip, TM.msm_multi(gx, gy, gz, scal)):
             raise AssertionError("sharded_msm_multi differs from msm_multi")
         ref_b = TM.msm_multi(gx[:nb], gy[:nb], gz[:nb], scal[:, :nb].contiguous())
-        if [pt(v) for v in bits] != [pt(v) for v in ref_b]:
-            raise AssertionError("the bitserial sharded_msm_multi differs from msm_multi")
+        host_b = [_msm_point(K, H.ints_to_u64([v % L.FP.modulus for v in
+                                              L.limbs_to_ints(scal[c, :nb])]))
+                  for c in range(BITS_COLS)]
+        if not [pt(v) for v in bits] == [pt(v) for v in ref_b] == host_b:
+            raise AssertionError("the bitserial sharded_msm_multi differs from msm_multi or "
+                                 "the host MSM")
+        want_bits = {"ec_ladder": 1, "ec_add_select": 0, "ec_double": 0, "ec_add": 10}
+        if {name: in_bits[name] for name in want_bits} != want_bits:
+            raise AssertionError(f"the bitserial sharded_msm_multi launched {in_bits}, not "
+                                 f"{want_bits}")
         if not torch.equal(mesh, ntt.ntt(vec, K, "fp")):
             raise AssertionError("ntt_mesh differs from ntt")
         if not torch.equal(hashes, PK.hash_n_batch(msgs, 8)):
@@ -2223,6 +2381,8 @@ def phase_parallel(pk, seed: int, dev, smi: str):
         dist.destroy_process_group()
     log("10f world 1 runs the sharded code and NCCL's collectives but moves nothing between "
         "devices; a multi-card run waits for a multi-card machine")
+    log(f"10f the bitserial sharded_msm_multi ({BITS_COLS} x {nb}) equals msm_multi and the host "
+        f"MSM; its launches: " + ", ".join(f"{k} {v}" for k, v in in_bits.items() if v))
     log(f"10f sharded layer at world 1 over NCCL, each equal to its unsharded counterpart: "
         + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
         + f"; launches {launches}   [{smi}]")
@@ -2264,10 +2424,14 @@ def main(argv=None) -> int:
                     smi)
     t10 = time.perf_counter()
     rng10 = np.random.default_rng(args.seed + 50)
-    path_ms = phase_group_law(rng10, dev, smi)  # K6/K7 on their main path's width
-    res["ec_double"] = path_ms.pop("ec_double")
-    for name, r in path_ms.items():
-        res[name].update(path_ms=r["ms"], path_bound=r["bound"], path_B=r["B"])
+    gen10 = torch.Generator(device=dev)
+    gen10.manual_seed(args.seed + 50)
+    group_law = phase_group_law(rng10, gen10, dev, smi)
+    res["ec_double"] = group_law["ec_double"]
+    res["ec_ladder"] = group_law["ec_ladder"]
+    res["ec_add_select"]["widths"] = group_law["ec_add_select"]["widths"]
+    k6 = group_law["ec_add"]  # K6 on its main path's width
+    res["ec_add"].update(path_ms=k6["ms"], path_bound=k6["bound"], path_B=k6["B"])
     launches_ipa = phase_ipa_list(args.seed + 51, smi)
     res_p, launches_pos = phase_poseidon(rng10, dev, smi)
     res.update(res_p)
@@ -2297,10 +2461,12 @@ def main(argv=None) -> int:
     for name, attr, src, replaces, paths in KERNELS:
         r = res[name]
         # "launches": the run of the kernel's main path, its first path
-        # (phase 5's proof for K1-K5 and the chained forms)
-        main_path = next((p for p in paths if p in by_path), "native")
+        # (phase 5's proof for K1-K5 and the chained forms); K7 and the
+        # doubling single-step are on no path since ec_ladder chains them
+        main_path = next((p for p in paths if p in by_path), None)
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                     "launches": by_path[main_path][name], "launches_path": main_path,
+                     "launches": by_path[main_path][name] if main_path else 0,
+                     "launches_path": main_path,
                      "launches_proof": launches[name], "launches_batch": launches_b[name],
                      "launches_tx": launches_tx[name], "launches_leg": launches_leg[name],
                      "launches_vamp_ir": launches_vir[name],
@@ -2311,9 +2477,17 @@ def main(argv=None) -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                      "library_ms": None, "ms_traces": TRACES.get(name)})
-        if "path_ms" in r:  # K6/K7 at the width of their main path (phase 10a)
+        if "path_ms" in r:  # K6 at the width of its main path (phase 10a)
             rows[-1].update(path_ms=r["path_ms"], path_B=r["path_B"],
                             path_bound_ms=r["path_bound"][0], path_bound_by=r["path_bound"][1])
+        if "widths" in r:  # K7 and the doubling single-step at SINGLE_WIDTHS (phase 10a)
+            rows[-1].update({f"{k}_by_width": {B: w[k] for B, w in r["widths"].items()}
+                             for k in ("ms", "plain_ms")},
+                            bound_ms_by_width={B: w["bound"][0] for B, w in r["widths"].items()})
+        if "stages" in r:  # ec_ladder: one chain's product stages; the shared-scalar ladder
+            rows[-1].update(chain_stages=r["stages"], shared_ms=r["shared_ms"],
+                            shared_B=W_GROUP, shared_bound_ms=r["shared_bound"][0],
+                            shared_chain_stages=r["shared_stages"])
         if "batch" in r:  # the kernel at the width of its launch in a lockstep batch
             b = r["batch"]
             rows[-1].update(batch_ms=b["ms"], batch_plain_ms=b["plain_ms"],

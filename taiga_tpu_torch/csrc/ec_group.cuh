@@ -1,4 +1,5 @@
-// A complete projective point add computed by a group of threads together.
+// Point adds computed by a group of threads together: the complete
+// projective add here, and the Jacobian add and doubling below.
 //
 // One RCB add (Renes-Costello-Batina 2015, Algorithm 7; csrc/field.cuh
 // ec_add_proj, the reference's _ec_add_proj_core) is a dependent chain in
@@ -120,6 +121,251 @@ __device__ __forceinline__ void ec_add_proj_group(Fe& x3, Fe& y3, Fe& z3,
   x3 = fe_sub(pb[0], pb[1], F);
   y3 = fe_add(pb[2], pb[3], F);
   z3 = fe_add(pb[5], pb[4], F);
+}
+
+// ---------------------------------------------------------------------------
+// The Jacobian core: the complete Jacobian add, alone (K7) or with the
+// doubling (a = 0) side by side in one group of kGroup threads (the
+// ladder). The doubling on its own stays one thread a lane
+// (csrc/ec_add_jac.cu), which is 4x faster at width.
+//
+// The general add (ec_add_jac in csrc/ec_add_jac.cu, the reference's
+// _ec_add_core) is 16 Montgomery products in 5 dependent stages, the
+// doubling dbl-2009-l 7 products in 3:
+//
+//   stage  the add P1 + P2                          the doubling 2Q
+//   1      z1 z1, z2 z2, z1 z2                      X X, Y Y, Y Z
+//   2      x1 z2z2, x2 z1z1, z2 z2z2, z1 z1z1       B B, (X+B)(X+B), E E
+//   3      y1 t2, y2 t1, h h, z1z2 h                E (D - X3)
+//   4      h hh, u1 hh, r r
+//   5      r (v - x3), s1 hhh
+//
+// jac_head runs stages 1-3 of either or both: the add's products at ranks
+// 0 .. nA-1, the doubling's after them (6, 7 and 5 products: a group of 8
+// holds both), so a double-and-add step costs the add's 5 stages, not 5 +
+// 3. jac_tail runs stages 4-5. Each rank computes one product a stage with
+// operands picked by selects; the add/sub chains are computed by every
+// thread, as in ec_add_proj_group.
+//
+// Bit-exactness: a Montgomery product is a function of its operands, and so
+// are the additions and subtractions, so the same operations on the same
+// operands, in any grouping into stages, give the one-thread formulas'
+// limbs. The case order is ec_add_jac's: the other operand where one side
+// is the identity (Z = 0), the doubling of P1 where h = r = 0, Z3 = 0 where
+// h = 0 and r != 0. The doubling of P1 runs only in a group whose lane has
+// h = r = 0 (a branch uniform over the group; ec_add_jac computes it on
+// every lane and selects). The doubling has no case analysis: an identity
+// lane keeps the formula's X3, Y3 with Z3 = 2YZ = 0.
+
+__device__ __forceinline__ bool fe_is_zero(const Fe& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) acc |= a.w[j];
+  return acc == 0;
+}
+
+// The Jacobian core's exchange rows: up to kGroup products a stage.
+struct JacScratch {
+  uint4 v[kGroup][2];
+};
+
+// v[r] for 0 <= r < the number of values (the last value otherwise), by a
+// chain of selects.
+template <class... T>
+__device__ __forceinline__ Fe pick(int r, const Fe& v0, const T&... vs) {
+  if constexpr (sizeof...(vs) == 0) {
+    return v0;
+  } else {
+    return fe_sel(r == 0, v0, pick(r - 1, vs...));
+  }
+}
+
+// A rank's operand: the add's where the rank is below the add's products
+// (`dbl_rank` false), the doubling's after them.
+template <bool kAdd, bool kDbl>
+__device__ __forceinline__ Fe either(bool dbl_rank, const Fe& add, const Fe& dbl) {
+  if constexpr (kAdd && kDbl) {
+    return fe_sel(dbl_rank, dbl, add);
+  } else if constexpr (kAdd) {
+    return add;
+  } else {
+    return dbl;
+  }
+}
+
+// The Jacobian core's Montgomery product, one copy that every product stage
+// calls. Inlined at each stage (5 a ladder step, and the 3 of the doubling
+// of P1), a step was 6,624 SASS instructions; where the warps of an SM ran
+// different stages at once (their lanes' bits differ) they missed the
+// instruction cache, and a ladder with a scalar a lane took 2x the time of
+// one with a shared scalar. Called, the ladder is 2,616 instructions and
+// the two take the same time (an NVIDIA H100, PERF.md section 6). The
+// operands pass by value, in registers.
+__device__ __noinline__ Fe fe_mul_call(const Fe a, const Fe b, const FieldConsts F) {
+  return fe_mul(a, b, F);
+}
+
+// One product stage of N <= kGroup products: rank r < N writes a*b as row
+// r, and every thread of the group reads the N rows back.
+template <int N>
+__device__ __forceinline__ void jac_stage(Fe (&out)[N], const Fe& a, const Fe& b,
+                                          const FieldConsts& F, JacScratch& s, int rank,
+                                          unsigned mask) {
+  static_assert(N >= 1 && N <= kGroup, "a stage holds 1 .. kGroup products");
+  const Fe prod = fe_mul_call(a, b, F);
+  if (rank < N) {
+    s.v[rank][0] = make_uint4(prod.w[0], prod.w[1], prod.w[2], prod.w[3]);
+    s.v[rank][1] = make_uint4(prod.w[4], prod.w[5], prod.w[6], prod.w[7]);
+  }
+  __syncwarp(mask);
+#pragma unroll
+  for (int k = 0; k < N; k++) {
+    const uint4 lo = s.v[k][0], hi = s.v[k][1];
+    out[k] = Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
+  }
+  __syncwarp(mask);
+}
+
+// The general add's values after stage 3.
+struct JacAddHead {
+  Fe u1, s1, h, r, hh, z3;
+};
+
+// Stages 1-3: the general add P1 + P2 up to h, r and z3 = z1 z2 h (kAdd),
+// and the whole doubling 2Q (kDbl), every thread getting both.
+template <bool kAdd, bool kDbl>
+__device__ __forceinline__ void jac_head(JacAddHead& a, Fe& dx, Fe& dy, Fe& dz, const Fe& x1,
+                                         const Fe& y1, const Fe& z1, const Fe& x2, const Fe& y2,
+                                         const Fe& z2, const Fe& qx, const Fe& qy, const Fe& qz,
+                                         const FieldConsts& F, JacScratch& s, int rank,
+                                         unsigned mask) {
+  static_assert(kAdd || kDbl, "a head runs the add, the doubling or both");
+  constexpr int nA1 = kAdd ? 3 : 0, nA2 = kAdd ? 4 : 0, nA3 = kAdd ? 4 : 0;
+  constexpr int nD1 = kDbl ? 3 : 0, nD2 = kDbl ? 3 : 0, nD3 = kDbl ? 1 : 0;
+
+  // stage 1: z1 z1, z2 z2, z1 z2 | X X, Y Y, Y Z
+  Fe p1[nA1 + nD1];
+  jac_stage(p1, either<kAdd, kDbl>(rank >= nA1, pick(rank, z1, z2, z1), pick(rank - nA1, qx, qy, qy)),
+            either<kAdd, kDbl>(rank >= nA1, pick(rank, z1, z2, z2), pick(rank - nA1, qx, qy, qz)),
+            F, s, rank, mask);
+  Fe z1z1 = {}, z2z2 = {}, z1z2 = {}, a_ = {}, b_ = {}, xb = {}, e_ = {};
+  if constexpr (kAdd) {
+    z1z1 = p1[0];
+    z2z2 = p1[1];
+    z1z2 = p1[2];
+  }
+  if constexpr (kDbl) {
+    a_ = p1[nA1];
+    b_ = p1[nA1 + 1];
+    const Fe yz = p1[nA1 + 2];
+    xb = fe_add(qx, b_, F);
+    e_ = fe_add(fe_add(a_, a_, F), a_, F);  // E = 3A
+    dz = fe_add(yz, yz, F);
+  }
+
+  // stage 2: x1 z2z2, x2 z1z1, z2 z2z2, z1 z1z1 | B B, (X+B)(X+B), E E
+  Fe p2[nA2 + nD2];
+  jac_stage(p2, either<kAdd, kDbl>(rank >= nA2, pick(rank, x1, x2, z2, z1), pick(rank - nA2, b_, xb, e_)),
+            either<kAdd, kDbl>(rank >= nA2, pick(rank, z2z2, z1z1, z2z2, z1z1),
+                               pick(rank - nA2, b_, xb, e_)),
+            F, s, rank, mask);
+  Fe t1 = {}, t2 = {}, c8 = {}, dt = {};
+  if constexpr (kAdd) {
+    a.u1 = p2[0];
+    a.h = fe_sub(p2[1], a.u1, F);  // h = u2 - u1
+    t2 = p2[2];
+    t1 = p2[3];
+  }
+  if constexpr (kDbl) {
+    const Fe c_ = p2[nA2], xb2 = p2[nA2 + 1], f_ = p2[nA2 + 2];
+    Fe d_ = fe_sub(fe_sub(xb2, a_, F), c_, F);
+    d_ = fe_add(d_, d_, F);  // D = 2((X+B)^2 - A - C)
+    dx = fe_sub(f_, fe_add(d_, d_, F), F);
+    c8 = fe_add(fe_add(c_, c_, F), fe_add(c_, c_, F), F);
+    c8 = fe_add(c8, c8, F);  // 8C
+    dt = fe_sub(d_, dx, F);
+  }
+
+  // stage 3: y1 t2, y2 t1, h h, z1z2 h | E (D - X3)
+  Fe p3[nA3 + nD3];
+  jac_stage(p3, either<kAdd, kDbl>(rank >= nA3, pick(rank, y1, y2, a.h, z1z2), e_),
+            either<kAdd, kDbl>(rank >= nA3, pick(rank, t2, t1, a.h, a.h), dt), F, s, rank,
+            mask);
+  if constexpr (kAdd) {
+    a.s1 = p3[0];
+    a.r = fe_sub(p3[1], a.s1, F);  // r = s2 - s1
+    a.hh = p3[2];
+    a.z3 = p3[3];
+  }
+  if constexpr (kDbl) dy = fe_sub(p3[nA3], c8, F);
+}
+
+// Stages 4-5: the general add's x3, y3 from its head.
+__device__ __forceinline__ void jac_tail(Fe& x3, Fe& y3, const JacAddHead& a,
+                                         const FieldConsts& F, JacScratch& s, int rank,
+                                         unsigned mask) {
+  // stage 4: h hh, u1 hh, r r
+  Fe p4[3];
+  jac_stage(p4, pick(rank, a.h, a.u1, a.r), pick(rank, a.hh, a.hh, a.r), F, s, rank, mask);
+  const Fe hhh = p4[0], v = p4[1];
+  x3 = fe_sub(fe_sub(p4[2], hhh, F), fe_add(v, v, F), F);
+  // stage 5: r (v - x3), s1 hhh
+  Fe p5[2];
+  jac_stage(p5, pick(rank, a.r, a.s1), pick(rank, fe_sub(v, x3, F), hhh), F, s, rank, mask);
+  y3 = fe_sub(p5[0], p5[1], F);
+}
+
+// The add's result from its head, for two operands that are not the
+// identity: the doubling of P1 where h = r = 0, else stages 4-5, with
+// Z3 = 0 where h = 0 (P1 = -P2). `mask` holds the threads that run this
+// together, each a thread of a group passing its own operands: one group,
+// or every group of a warp (whose stages then stay in step). The tail runs
+// where any of them needs it, the doubling where any `live` one has
+// h = r = 0 (a lane that is not `live` takes no add: its result is not
+// read), so over a single group both are branches uniform over the group.
+__device__ __forceinline__ void jac_add_finish(Fe& xo, Fe& yo, Fe& zo, const JacAddHead& a,
+                                               const Fe& x1, const Fe& y1, const Fe& z1,
+                                               bool live, const FieldConsts& F, JacScratch& s,
+                                               int rank, unsigned mask) {
+  const bool h_zero = fe_is_zero(a.h);
+  const bool twice = live && h_zero && fe_is_zero(a.r);
+  if (__any_sync(mask, !twice)) {
+    jac_tail(xo, yo, a, F, s, rank, mask);
+    zo = h_zero ? Fe{} : a.z3;
+  }
+  if (__any_sync(mask, twice)) {
+    JacAddHead unused{};
+    Fe dx, dy, dz;  // dbl-2009-l of P1, 3 stages
+    jac_head<false, true>(unused, dx, dy, dz, x1, y1, z1, x1, y1, z1, x1, y1, z1, F, s, rank,
+                          mask);
+    if (twice) {
+      xo = dx;
+      yo = dy;
+      zo = dz;
+    }
+  }
+}
+
+// (xo, yo, zo) = (x1, y1, z1) + (x2, y2, z2), complete (Z = 0 is the
+// identity), by the kGroup threads of `mask`, each passing the same
+// operands; every thread gets the sum. 5 product stages (6 where P1 = P2:
+// 3, then the doubling's 3).
+__device__ __forceinline__ void ec_add_jac_group(Fe& xo, Fe& yo, Fe& zo, const Fe& x1,
+                                                 const Fe& y1, const Fe& z1, const Fe& x2,
+                                                 const Fe& y2, const Fe& z2,
+                                                 const FieldConsts& F, JacScratch& s, int rank,
+                                                 unsigned mask) {
+  const bool p_inf = fe_is_zero(z1), q_inf = fe_is_zero(z2);
+  if (p_inf || q_inf) {
+    xo = p_inf ? x2 : x1;
+    yo = p_inf ? y2 : y1;
+    zo = p_inf ? z2 : z1;
+    return;
+  }
+  JacAddHead a;
+  Fe ux, uy, uz;  // no doubling in this head
+  jac_head<true, false>(a, ux, uy, uz, x1, y1, z1, x2, y2, z2, x1, y1, z1, F, s, rank, mask);
+  jac_add_finish(xo, yo, zo, a, x1, y1, z1, true, F, s, rank, mask);
 }
 
 }  // namespace taiga

@@ -96,6 +96,8 @@ _ARGTYPES = {
         "taiga_ec_add_jac": [_VP] * 9 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_add_jac_sel": [_VP] * 10 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_double_jac": [_VP] * 6 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_ladder": [_VP] * 4 + [_I64, ctypes.c_int] + [_VP] * 3
+                           + [_I64, _I64, ctypes.c_int, _VP],
     },
     "poseidon": {
         "taiga_poseidon_set_consts": [_VP, _VP],

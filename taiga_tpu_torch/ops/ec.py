@@ -9,9 +9,9 @@ coordinate FieldSpec passed in.
 The group law runs on the Jacobian kernels of ops/ff_kernels.py, on
 limb-major (16, B) copies of the rows: ec_add is K6 (the complete add:
 add and doubling both computed, then selected), ec_double the doubling
-kernel (dbl-2009-l, no case analysis), and every step of
-ec_scalar_mul_shared is K7 (add where the shared bit is set) and a
-doubling. On CPU tensors the wrappers run their plain versions, so the
+kernel (dbl-2009-l, no case analysis), and ec_scalar_mul_shared one
+ec_ladder launch (K7 chained with the doubling: the whole double-and-add
+ladder). On CPU tensors the wrappers run their plain versions, so the
 results equal the reference's limb for limb (tests/test_torch_ec.py).
 """
 
@@ -109,21 +109,13 @@ def ec_select(cond, p, q):
 def ec_scalar_mul_shared(p, scalar_limbs, spec: L.FieldSpec, bits: int = 255):
     """[s] P lane-wise where all lanes share ONE scalar (plain 16-bit limbs,
     shape (16,)). Double-and-add, LSB first, select on the shared bit — as
-    the IPA generator fold uses it (G' = G_lo + [u^-1] G_hi). Each step is
-    one K7 launch (acc + base where the bit is set, broadcast over the
-    lanes) and one doubling launch; the reference's last doubling, whose
-    result nothing reads, is left out."""
-    (s,) = L.limbs_to_ints(scalar_limbs)
+    the IPA generator fold uses it (G' = G_lo + [u^-1] G_hi). The whole
+    ladder is one ec_ladder launch (K7 chained with the doubling); the
+    reference's last doubling, whose result nothing reads, is left out."""
     shape, base = _to_lm(p)
-    B = base[0].shape[1]
-    acc = [torch.zeros_like(v) for v in base]
-    on = torch.ones((1, B), dtype=L.DTYPE, device=base[0].device)
-    off = torch.zeros_like(on)
-    for i in range(bits):
-        acc = FK.ec_add_select_lm(*acc, *base, on if (s >> i) & 1 else off, spec.name)
-        if i + 1 < bits:
-            base = FK.ec_double_lm(*base, spec.name)
-    return _from_lm(shape, acc)
+    sl = torch.as_tensor(scalar_limbs, dtype=L.DTYPE, device=base[0].device)
+    sl = sl.reshape(L.NLIMBS).contiguous()
+    return _from_lm(shape, FK.ec_ladder_lm(*base, sl, bits, spec.name))
 
 
 def ec_identity_like(p):

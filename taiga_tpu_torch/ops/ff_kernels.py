@@ -14,6 +14,7 @@ warp's lanes read neighbouring words.
   K5 ec_fold_shared_lm  G_lo + [s] G_hi, one shared s  csrc/ec_fold_shared.cu
   K6 ec_add_lm          complete Jacobian add          csrc/ec_add_jac.cu
   K7 ec_add_select_lm   sel ? P1 + P2 : P1 (Jacobian)  csrc/ec_add_jac.cu
+     ec_ladder_lm       K7 chained: double-and-add     csrc/ec_add_jac.cu
      ec_double_lm       Jacobian doubling (dbl-2009-l) csrc/ec_add_jac.cu
   (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu.)
 
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 from . import cuda_kernels as CK
@@ -44,7 +46,7 @@ _force_plain = False
 @contextlib.contextmanager
 def plain_versions():
     """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner,
-    ec_double, and poseidon_kernel.permute_batch) runs its plain version,
+    ec_ladder, ec_double, and poseidon_kernel.permute_batch) runs its plain version,
     on any device. Used to hold the kernels' results against the plain
     path. The flag is module state: it covers every thread, the pipelined
     prover's worker included."""
@@ -144,53 +146,84 @@ def _is_zero(a):
     return (a == 0).all(dim=0)
 
 
-def _ec_double_core(x1, y1, z1, field: str):
-    """Jacobian doubling for a = 0 (dbl-2009-l; taiga_tpu/ops/ec.py::ec_double),
-    no case analysis: an identity lane (Z = 0) gets Z3 = 2YZ = 0. The
-    reference's field operations, the independent products of each step
-    stacked into one call (3 calls for its 7 products): every value, and so
-    every limb, is the op-by-op formula's."""
+def _jac_stages(p1p2, q, field: str):
+    """The Jacobian formulas by the product stages of csrc/ec_group.cuh's
+    Jacobian core: the general add P1 + P2 (p1p2 = (x1, y1, z1, x2, y2, z2);
+    the reference _ec_add_core's formula; gives x3, y3, z3, h, r) and the
+    doubling 2Q (q = (x, y, z); dbl-2009-l for a = 0, no case analysis: an
+    identity lane gets Z3 = 2YZ = 0), either or both, each stage's
+    independent products of both stacked into one call (the add's 16 in 5
+    calls, the doubling's 7 in the first 3). Every value, and so every limb,
+    is the op-by-op formulas'. Returns (x3, y3, z3, h, r) or None, and 2Q or
+    None."""
     mm, add, sub = (_stacked(op, field) for op in (_mm_cios, _madd, _msub))
+    A, D = p1p2 is not None, q is not None
+    if A:
+        x1, y1, z1, x2, y2, z2 = p1p2
+    if D:
+        qx, qy, qz = q
 
-    a_, b_, yz = mm([x1, y1, y1], [x1, y1, z1])
-    xb, e_, dz = add([x1, a_, yz], [b_, a_, yz])
-    (e_,) = add([e_], [a_])  # E = 3A
-    c_, xb2, f_ = mm([b_, xb, e_], [b_, xb, e_])
-    (d_,) = sub([xb2], [a_])
-    (d_,) = sub([d_], [c_])
-    (d_,) = add([d_], [d_])  # D = 2((X+B)^2 - A - C)
-    c2, d2 = add([c_, d_], [c_, d_])
-    (dx,) = sub([f_], [d2])
-    (c8,) = add([c2], [c2])
-    (c8,) = add([c8], [c8])  # 8C
-    (t,) = sub([d_], [dx])
-    (et,) = mm([e_], [t])
-    (dy,) = sub([et], [c8])
-    return dx.contiguous(), dy.contiguous(), dz.contiguous()
+    def both(a_ops, d_ops):  # the add's operands, then the doubling's
+        return (a_ops() if A else []) + (d_ops() if D else [])
 
-
-def _ec_add_core(x1, y1, z1, x2, y2, z2, field: str):
-    """Complete Jacobian addition (reference _ec_add_core): the general add
-    and the doubling (a = 0) are both computed, then selected — doubling
-    where P1 = P2, Z = 0 where P1 = -P2, the other operand where one is the
-    identity (Z = 0). The general add's 16 products run as 6 stacked calls
-    (the values of the op-by-op formula, as in _ec_add_proj_core), and the
-    doubling only when a lane selects it."""
-    mm, add, sub = (_stacked(op, field) for op in (_mm_cios, _madd, _msub))
-
-    z1z1, z2z2, z1z2 = mm([z1, z2, z1], [z1, z2, z2])
-    u1, u2, t2, t1 = mm([x1, x2, z2, z1], [z2z2, z1z1, z2z2, z1z1])
-    s1, s2 = mm([y1, y2], [t2, t1])
-    h, r = sub([u2, s2], [u1, s1])
-    hh, r2, z3 = mm([h, r, z1z2], [h, r, h])
-    hhh, v = mm([h, u1], [hh, hh])
+    # stage 1: z1 z1, z2 z2, z1 z2 | X X, Y Y, Y Z
+    p = mm(both(lambda: [z1, z2, z1], lambda: [qx, qy, qy]),
+           both(lambda: [z1, z2, z2], lambda: [qx, qy, qz]))
+    if A:
+        z1z1, z2z2, z1z2 = p[:3]
+    if D:
+        a_, b_, yz = p[-3:]
+        xb, e_, dz = add([qx, a_, yz], [b_, a_, yz])
+        (e_,) = add([e_], [a_])  # E = 3A
+    # stage 2: x1 z2z2, x2 z1z1, z2 z2z2, z1 z1z1 | B B, (X+B)(X+B), E E
+    p = mm(both(lambda: [x1, x2, z2, z1], lambda: [b_, xb, e_]),
+           both(lambda: [z2z2, z1z1, z2z2, z1z1], lambda: [b_, xb, e_]))
+    if A:
+        u1, u2, t2, t1 = p[:4]
+        (h,) = sub([u2], [u1])
+    if D:
+        c_, xb2, f_ = p[-3:]
+        (d_,) = sub([xb2], [a_])
+        (d_,) = sub([d_], [c_])
+        (d_,) = add([d_], [d_])  # D = 2((X+B)^2 - A - C)
+        c2, d2 = add([c_, d_], [c_, d_])
+        (dx,) = sub([f_], [d2])
+        (c8,) = add([c2], [c2])
+        (c8,) = add([c8], [c8])  # 8C
+        (t,) = sub([d_], [dx])
+    # stage 3: y1 t2, y2 t1, h h, z1z2 h | E (D - X3)
+    p = mm(both(lambda: [y1, y2, h, z1z2], lambda: [e_]),
+           both(lambda: [t2, t1, h, h], lambda: [t]))
+    dbl = None
+    if D:
+        (dy,) = sub([p[-1]], [c8])
+        dbl = (dx.contiguous(), dy.contiguous(), dz.contiguous())
+    if not A:
+        return None, dbl
+    s1, s2, hh, z3 = p[:4]
+    (r,) = sub([s2], [s1])
+    # stage 4: h hh, u1 hh, r r; stage 5: r (v - x3), s1 hhh
+    hhh, v, r2 = mm([h, u1, r], [hh, hh, r])
     (v2,) = add([v], [v])
     (x3,) = sub([r2], [hhh])
     (x3,) = sub([x3], [v2])
     (vx,) = sub([v], [x3])
     rv, sh = mm([r, s1], [vx, hhh])
     (y3,) = sub([rv], [sh])
+    return (x3, y3, z3, h, r), dbl
 
+
+def _ec_double_core(x1, y1, z1, field: str):
+    """Jacobian doubling for a = 0 (dbl-2009-l; taiga_tpu/ops/ec.py::ec_double),
+    no case analysis: an identity lane (Z = 0) gets Z3 = 2YZ = 0."""
+    return _jac_stages(None, (x1, y1, z1), field)[1]
+
+
+def _ec_add_cases(x1, y1, z1, x2, y2, z2, x3, y3, z3, h, r, field: str):
+    """The complete add's result from the general formula's (reference
+    _ec_add_core's selection): the doubling of P1 where P1 = P2 (h = r = 0;
+    computed only when a lane takes it), Z = 0 where P1 = -P2, the other
+    operand where one is the identity (Z = 0)."""
     p_inf = _is_zero(z1)
     q_inf = _is_zero(z2)
     h_zero = _is_zero(h)
@@ -210,6 +243,15 @@ def _ec_add_core(x1, y1, z1, x2, y2, z2, field: str):
     yo = torch.where(p_inf, y2, torch.where(q_inf, y1, yo))
     zo = torch.where(p_inf, z2, torch.where(q_inf, z1, zo))
     return xo, yo, zo
+
+
+def _ec_add_core(x1, y1, z1, x2, y2, z2, field: str):
+    """Complete Jacobian addition (reference _ec_add_core): the general add
+    (16 products in 5 stacked calls), then the selection of
+    _ec_add_cases."""
+    pts = (x1, y1, z1, x2, y2, z2)
+    head, _ = _jac_stages(pts, None, field)
+    return _ec_add_cases(*pts, *head, field)
 
 
 def mont_mul_plain(a, b, field: str = "fq"):
@@ -258,8 +300,7 @@ def ec_add_plain(x1, y1, z1, x2, y2, z2, field: str = "fq"):
 
 def ec_add_select_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     """Plain version of K7: sel ? P1 + P2 : P1 (Jacobian), lane-wise. With
-    no lane selected (a zero bit of ec_scalar_mul_shared's shared scalar)
-    that is P1, and no add is computed."""
+    no lane selected that is P1, and no add is computed."""
     m = sel[0] != 0
     if not bool(m.any()):
         return x1.clone(), y1.clone(), z1.clone()
@@ -270,6 +311,51 @@ def ec_add_select_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
 def ec_double_plain(x1, y1, z1, field: str = "fq"):
     """Plain version of the Jacobian doubling (ec_double_lm)."""
     return _ec_double_core(x1, y1, z1, field)
+
+
+LADDER_BITS_MAX = 16 * NLIMBS  # the bits a scalar's limbs hold
+
+
+def _ladder_lanes(scalars, n: int) -> tuple[int, int]:
+    """(C, lane stride) of ec_ladder's scalars: (16,) one scalar shared by
+    every lane (C = 1, stride 0), or (C, n, 16) one a lane (stride 16)."""
+    if scalars.dim() == 1 and scalars.shape[0] == NLIMBS:
+        return 1, 0
+    if scalars.dim() == 3 and scalars.shape[1:] == (n, NLIMBS):
+        return scalars.shape[0], NLIMBS
+    raise ValueError(f"scalars: shape {tuple(scalars.shape)}, expected (16,) or (C, {n}, 16)")
+
+
+def ec_ladder_plain(x, y, z, scalars, bits: int = 255, field: str = "fq"):
+    """Plain version of ec_ladder: per lane, acc = (0, 0, 0); for bit i of
+    the lane's scalar, LSB first, acc = bit ? acc + base : acc (K7's
+    complete add), then, except after the last bit, base = 2 base (the
+    doubling). Base (16, n); scalars as ec_ladder_lm takes them. Each step
+    is ec_add_select_plain's add and ec_double_plain's doubling, their
+    products stacked stage by stage (_jac_stages; the base doubled on each
+    of the C x n lanes, as the kernel does); a step where no lane's bit is
+    set only doubles. The loop ends at the highest bit set in any lane:
+    after it acc does not change."""
+    n = x.shape[1]
+    C, _ = _ladder_lanes(scalars, n)
+    limbs = scalars.reshape(-1, NLIMBS)
+    ors = np.bitwise_or.reduce(limbs.cpu().numpy().astype(np.int64), axis=0)
+    steps = (sum(int(v) << (16 * j) for j, v in enumerate(ors)) & ((1 << bits) - 1)).bit_length()
+    base = tuple(v.repeat(1, C) for v in (x, y, z))
+    acc = tuple(torch.zeros_like(v) for v in base)
+    for i in range(steps):
+        m = ((limbs[:, i // 16] >> (i % 16)) & 1) != 0
+        last = i + 1 == steps
+        if not bool(m.any()):
+            if not last:
+                base = _ec_double_core(*base, field)
+            continue
+        head, nxt = _jac_stages((*acc, *base), None if last else base, field)
+        added = _ec_add_cases(*acc, *base, *head, field)
+        acc = tuple(torch.where(m, s, a) for s, a in zip(added, acc))
+        if not last:
+            base = nxt
+    return tuple(v.contiguous() for v in acc)
 
 
 def ec_horner_plain(wx, wy, wz, doublings: int, field: str = "fq"):
@@ -472,6 +558,31 @@ def ec_add_select_lm(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return outs
 
 
+def ec_ladder_lm(x, y, z, scalars, bits: int = 255, field: str = "fq"):
+    """K7 chained into one launch: the double-and-add ladder of
+    ec_ladder_plain over base (16, n) Jacobian limb-major points (identity
+    Z = 0) and plain 16-bit scalar limbs (int32): (16,) one scalar shared by
+    every lane, or (C, n, 16) one scalar a lane per column. Returns acc as
+    3 x (16, C * n), lane c * n + i = [s_ci] P_i (C = 1 for a shared
+    scalar); a lane whose bits are all 0 is (0, 0, 0)."""
+    n = x.shape[-1]
+    for nm, t in zip(("x", "y", "z"), (x, y, z)):
+        check_lm(nm, t, NLIMBS, n)
+    C, stride = _ladder_lanes(scalars, n)
+    check_lm("scalars", scalars, *scalars.shape)
+    if not 0 <= bits <= LADDER_BITS_MAX:
+        raise ValueError(f"ec_ladder: bits = {bits}, expected 0 .. {LADDER_BITS_MAX}")
+    if not use_kernel(x, y, z, scalars):
+        return ec_ladder_plain(x, y, z, scalars, bits, field)
+    outs = tuple(torch.empty((NLIMBS, C * n), dtype=x.dtype, device=x.device) for _ in range(3))
+    so = CK.lib("ec_add_jac")
+    CK.check(so.taiga_ec_ladder(*map(_ptr, (x, y, z, scalars)), stride, bits,
+                                *map(_ptr, outs), n, C * n, CK.FIELD_IDS[field],
+                                CK.stream_ptr(x.device)), "ec_ladder")
+    ec_ladder_lm.launches += 1
+    return outs
+
+
 def ec_double_lm(x1, y1, z1, field: str = "fq"):
     """Jacobian doubling (dbl-2009-l, a = 0) over (16, B) limb-major points:
     the XLA program taiga_tpu/ops/ec.py::ec_double as one kernel. Unlike
@@ -521,5 +632,6 @@ ec_seg_rounds_lm.launches = 0
 ec_horner_lm.launches = 0
 ec_add_lm.launches = 0
 ec_add_select_lm.launches = 0
+ec_ladder_lm.launches = 0
 ec_double_lm.launches = 0
 ec_fold_shared_lm.launches = 0

@@ -7,7 +7,7 @@ is what `Pspec(AXIS)` gives a device. Every function here takes this rank's
 shard and returns the replicated result on every rank:
 
   sharded_msm / sharded_msm_multi: each rank reduces its points (Pippenger,
-      or the bitserial K7 ladder), the (C, 3, 16) partials are all-gathered
+      or the bitserial ladder, ec_ladder), the (C, 3, 16) partials are all-gathered
       and folded in rank order with ec.ec_add (K6);
   batch_hash_step: each rank hashes its share of a batch (Poseidon kernel),
       the hashes are all-gathered;
@@ -121,20 +121,15 @@ def sharded_msm(group: Group, px, py, pz, scalar_limbs, field: str = "fq",
 def _local_msm_bitserial(pxs, pys, pzs, sls, field: str, bits: int = 255):
     """Multi-column MSM as one shared doubling ladder (the reference's
     _local_msm_bitserial): acc (C, n) lanes, for bit i (LSB first) of every
-    scalar, acc = bit ? acc + base : acc (K7, the bit per lane), then
-    base = 2 base (the doubling); last, each column's lanes are summed by a
-    halving tree of K6. Returns (C, 3, 16) Jacobian."""
+    scalar, acc = bit ? acc + base : acc, then base = 2 base, the whole
+    ladder in one ec_ladder launch (K7 chained with the doubling, the bit
+    per lane); last, each column's lanes are summed by a halving tree of
+    K6. Returns (C, 3, 16) Jacobian."""
     C, n = sls.shape[0], sls.shape[1]
     if n & (n - 1):
         raise ValueError(f"the bitserial tree needs a power-of-two local shard, got {n}")
     base = [v.T.contiguous() for v in (pxs, pys, pzs)]  # (16, n)
-    acc = [torch.zeros((L.NLIMBS, C * n), dtype=L.DTYPE, device=pxs.device) for _ in range(3)]
-    limbs = sls.reshape(C * n, L.NLIMBS)
-    for i in range(bits):
-        sel = ((limbs[:, i // 16] >> (i % 16)) & 1)[None].contiguous()
-        acc = FK.ec_add_select_lm(*acc, *(v.repeat(1, C) for v in base), sel, field)
-        if i + 1 < bits:
-            base = FK.ec_double_lm(*base, field)
+    acc = FK.ec_ladder_lm(*base, sls.contiguous(), bits, field)  # (16, C * n)
     acc = [v.reshape(L.NLIMBS, C, n) for v in acc]
     while n > 1:
         h = n // 2
@@ -157,7 +152,7 @@ def sharded_msm_multi(group: Group, px, py, pz, scalars, field: str = "fq",
     with complete Jacobian adds (K6). Returns (C, 3, 16), replicated.
 
     strategy: "pippenger" (the port's msm_multi; the default on the card)
-    or "bitserial" (the K7 ladder; the default on the CPU, as the reference
+    or "bitserial" (the ec_ladder ladder; the default on the CPU, as the reference
     picks by platform: short to run through the plain versions)."""
     if strategy is None:
         strategy = "pippenger" if px.device.type == "cuda" else "bitserial"
