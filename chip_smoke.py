@@ -119,12 +119,20 @@ exit code and no result line:
      ec_add (K6), ec_double (the doubling kernel) and ec_scalar_mul_shared
      (one ec_ladder launch: K7 chained with the doubling, 255 steps)
      against their plain versions bit for bit and the host group law on
-     sampled lanes; ec_ladder against ec_ladder_plain on both fields in
+     sampled lanes, launch counts zeroed just before them and read after
+     (the "group_law" path, fq's counts kept); ec_add_tree (K6 chained:
+     each column's halving tree in one launch) at C x n = 1-3 x 1, 2, 8,
+     64, at 1 x 8,192 (above the 4,096 points a block takes: one K6 level
+     first) and at (f)'s 2 x 1,024, whose first level adds identities,
+     P + P and P + (-P), against ec_add_tree_plain bit for bit and the
+     host sum of every column; ec_ladder against ec_ladder_plain on both fields in
      both bit modes, a scalar shared by 4,096 lanes (0, 1, q and a random
      one) and a scalar a lane over (f)'s 2 x 1,024 lanes (0, 1, q - 1, q
      and 2^254 among random ones), identity lanes included, and the host
      group law on sampled lanes; K7 and the doubling single-step bit for
-     bit at 1,024, 2,048 and 1,048,576 lanes; then K6 at (f)'s width, K7
+     bit at 1,024, 2,048 and 1,048,576 lanes; then K6 at 1,024 lanes,
+     ec_add_tree at 2 x 1,024 (with its plain version's time, its bound
+     and its chain of 10 dependent adds), K7
      and the doubling at those three widths and the ladder (shared at
      4,096 lanes, a scalar a lane at 2 x 1,024 and 1 x 1,024) timed, each
      ladder with one chain's length in product stages; (b) the list-based
@@ -133,17 +141,25 @@ exit code and no result line:
      and ipa_open_native's under one seed, verified and refused with a0 changed, timed, with its launches
      counted (zeroed just before, read after: the "ipa_list" path);
      multiopen_open_device is the hybrid multiopen with the device open,
-     which phase 5's device-IPA proof runs; (d) the Poseidon kernel at
-     16,384 states against its plain version and the host permutation,
-     timed (permutations per second), then hash_n_batch at (4,096, 8) and
-     merkle_root of 2^14 leaves against the host hash (the "poseidon"
-     path); (e) the compliance key's fixed and sigma columns committed on
-     the card (keygen.commit_columns) against the host engine's keygen,
-     verifying keys equal, both timed; (f) the sharded
-     layer at world 1 over NCCL in this process: sharded_msm_multi
-     (Pippenger, and the bitserial ladder: one ec_ladder launch, no K7 or
-     doubling launch, 10 of K6; equal to Pippenger's and the host engine's
-     MSM), ntt_mesh at k = 13,
+     which phase 5's device-IPA proof runs; (d) the Poseidon kernels of
+     csrc/poseidon.cu: permute_batch at 4,096 and 16,384 states against
+     its plain version and the host permutation, and at 1,048,576 against
+     the host permutation on sampled lanes; the sponge kernel
+     (hash_n_batch) at lengths 1-8 against the host hash and at (4,096, 8)
+     against its plain version and the host hash; merkle_root of 2^14
+     leaves (the sponge a level) against its plain version and the host
+     tree; each timed beside its plain version and its bound (the sparse
+     form's 592 products a permutation, PR 8's 816 beside it); then the
+     "poseidon" path, zeroed just before and read after: permute_batch at
+     16,384 states (one launch), hash_n_batch at (4,096, 8) (one launch)
+     and merkle_root of 2^14 leaves (14 launches); (e) the compliance
+     key's fixed and sigma columns committed on the card
+     (keygen.commit_columns) against the host engine's keygen, verifying
+     keys equal, both timed; (f) the sharded layer at world 1 over NCCL in
+     this process: sharded_msm_multi
+     (Pippenger, and the bitserial ladder: one ec_ladder launch and one
+     ec_add_tree launch, no K7, doubling or K6 launch; equal to Pippenger's
+     and the host engine's MSM), ntt_mesh at k = 13,
      batch_hash_step, sharded_point_sum and prove_step against their
      unsharded counterparts, and a grouped create_proofs_batch of 2
      compliance proofs against the ungrouped batch byte for byte (the
@@ -203,10 +219,12 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "ec_fold_shared": ("k_ec_fold_shared",),
     "ec_horner": ("k_ec_horner",),
     "ec_add": ("k_ec_add_jac",),
+    "ec_add_tree": ("k_ec_add_tree",),
     "ec_add_select": ("k_jac_add_select",),
     "ec_ladder": ("k_jac_ladder",),
     "ec_double": ("k_ec_double_jac",),
     "poseidon": ("k_poseidon_permute",),
+    "poseidon_sponge": ("k_poseidon_sponge",),
 }
 
 
@@ -239,6 +257,20 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def once_ms(fn):
+    """fn() run once, and its stream time between two CUDA events: a plain
+    version's run that is both compared and timed (it takes seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def device_trace(fn):
@@ -972,9 +1004,10 @@ KERNELS = [
     # path launches it ("native": the native IPA open, "device": ipa="device",
     # "batch": a lockstep batch or the pipeline, which open natively; "tx":
     # the shielded transaction flows of phase 8; "vamp_ir": phase 9's
-    # Vamp-IR logic proof; phase 10's "ipa_list": the list-based IPA open,
-    # "poseidon": hash_n_batch and merkle_root, "parallel": the sharded
-    # layer at world 1)
+    # Vamp-IR logic proof; phase 10's "group_law": ops/ec.py's ec_add,
+    # ec_double and ec_scalar_mul_shared, "ipa_list": the list-based IPA
+    # open, "poseidon": permute_batch, hash_n_batch and merkle_root,
+    # "parallel": the sharded layer at world 1)
     ("mont_mul", "mont_mul_lm", "taiga_tpu_torch/csrc/mont_mul.cu",
      "taiga_tpu/ops/ff_kernels.py:428", ("native", "device", "batch", "tx", "vamp_ir")),
     ("ec_add_proj", "ec_add_proj_lm", "taiga_tpu_torch/csrc/ec_add_proj.cu",
@@ -996,20 +1029,27 @@ KERNELS = [
      "taiga_tpu/ops/tape_device.py:81", ("native", "device", "batch", "tx", "vamp_ir")),
     ("ec_fold_shared", "ec_fold_shared_lm", "taiga_tpu_torch/csrc/ec_fold_shared.cu",
      "taiga_tpu/ops/ff_kernels.py:623", ("device", "ipa_list")),
+    # K6: ec.ec_add (10a's group law); the sharded fold runs it at world > 1
     ("ec_add", "ec_add_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
-     "taiga_tpu/ops/ff_kernels.py:483", ("parallel",)),
+     "taiga_tpu/ops/ff_kernels.py:483", ("group_law",)),
+    # K6 chained: each column's halving tree of the bitserial MSM
+    ("ec_add_tree", "ec_add_tree_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
+     "taiga_tpu/parallel/sharded.py:84-89 (the halving tree over K6)", ("parallel",)),
     # K7 and the doubling single-step: on no path since ec_ladder chains them
     ("ec_add_select", "ec_add_select_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
      "taiga_tpu/ops/ff_kernels.py:448", ()),
     # K7 chained with the doubling: the whole double-and-add ladder
     ("ec_ladder", "ec_ladder_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
      "taiga_tpu/ops/ec.py:144-161 and taiga_tpu/parallel/sharded.py:58-86 (the ladders over "
-     "K7 and the doubling)", ("parallel",)),
+     "K7 and the doubling)", ("parallel", "group_law")),
     # replace XLA programs, not Pallas calls
     ("ec_double", "ec_double_lm", "taiga_tpu_torch/csrc/ec_add_jac.cu",
-     "none: the XLA program taiga_tpu/ops/ec.py:75", ()),
+     "none: the XLA program taiga_tpu/ops/ec.py:75", ("group_law",)),
     ("poseidon", "permute_batch", "taiga_tpu_torch/csrc/poseidon.cu",
-     "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:62", ("poseidon", "parallel")),
+     "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:62", ("poseidon",)),
+    # the whole sponge: hash_n_batch, merkle_root (a launch a level), batch_hash_step
+    ("poseidon_sponge", "hash_n_batch", "taiga_tpu_torch/csrc/poseidon.cu",
+     "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:90", ("poseidon", "parallel")),
 ]
 
 
@@ -1026,8 +1066,8 @@ def zero_counts():
 
 def read_counts(what: str, path: str) -> dict:
     """The launch counts since zero_counts(); fails if a kernel of the path
-    ("native" or "device" IPA, "batch", "tx", "vamp_ir", "ipa_list",
-    "poseidon", "parallel") was never launched."""
+    ("native" or "device" IPA, "batch", "tx", "vamp_ir", "group_law",
+    "ipa_list", "poseidon", "parallel") was never launched."""
     counts = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
     for name, _, _, _, paths in KERNELS:
         if path in paths and counts[name] == 0:
@@ -1926,10 +1966,23 @@ SAMPLED = (0, 1, 2, 3, 4, 5, 6, 7, 1000, W_GROUP - 1)  # lanes held against the 
 # ladder was one launch, and the width phase 4 times K2 and K6 at
 SINGLE_WIDTHS = (BITS_POINTS, BITS_COLS * BITS_POINTS, W_EC_ADD)
 LADDER_BITS = 255
+# ec_add_tree's small columns (C, n), and one of N = 8,192 points, above
+# the 4,096 a block takes (one K6 level first), beside 10f's BITS_COLS x
+# BITS_POINTS
+TREE_SHAPES = tuple((C, n) for n in (1, 2, 8, 64) for C in (1, 2, 3)) + ((1, N),)
 POSEIDON_STATES = 16384       # bench.py tier 3's n
 HASH_SHAPE = (4096, 8)        # bench.py tier 2's (batch, length)
+POSEIDON_WIDTHS = (HASH_SHAPE[0], POSEIDON_STATES, 1 << 20)  # permute_batch timed at each
 MERKLE_LEAVES = 1 << 14
-POSEIDON_PRODUCTS = 8 * 18 + 56 * 12  # Montgomery products a permutation: full + partial rounds
+# Montgomery products a permutation needs, in the sparse form
+# (ops/poseidon_kernel.py::sparse_params): a full round 3 S-boxes of 3 and
+# a dense 3 x 3 matrix, a partial round one S-box and a sparse matrix of
+# 2t - 1 = 5; and the dense form's count (PR 8's bound), printed beside it
+POSEIDON_PRODUCTS = 8 * (3 * 3 + 9) + 56 * (3 + 5)
+POSEIDON_PRODUCTS_DENSE = 8 * (3 * 3 + 9) + 56 * (3 + 9)
+# one state's chain on a quad of threads (csrc/poseidon.cu): a full round
+# 6 product stages, a partial round 3, and the last partial round's w v
+POSEIDON_STAGES = 8 * 6 + 56 * 3 + 1
 
 
 def ladder_work(cols: list[list[int]], bits: int = LADDER_BITS) -> tuple[int, int]:
@@ -1955,26 +2008,62 @@ def ladder_work(cols: list[list[int]], bits: int = LADDER_BITS) -> tuple[int, in
     return products, stages
 
 
+def host_points(field: str, x, y, z) -> list:
+    """Every lane of limb-major Jacobian Montgomery coordinates as host
+    points."""
+    from taiga_tpu_torch.ops import limbs as L
+
+    curve, spec = curve_of(field), L.FIELDS[field]
+    p, F = spec.modulus, curve.FIELD
+    X, Y, Z = (spec.array_from_mont(np.ascontiguousarray(v.T.cpu().numpy())) for v in (x, y, z))
+    out = []
+    for a, b, c in zip(X, Y, Z):
+        if c == 0:
+            out.append(curve.identity())
+            continue
+        zi = pow(c, -1, p)
+        out.append(curve(F(a * zi * zi % p), F(b * zi * zi * zi % p)))
+    return out
+
+
+def tree_columns(p1, p2, C: int, n: int):
+    """ec_add_tree's input (16, C n) x 3: column c is p1's lanes c h ..
+    c h + h - 1, then p2's (h = n / 2), so that the tree's first level adds
+    p1[i] and p2[i] -- jacobian_inputs' identities (lanes 0-2), P + P
+    (3-4) and P + (-P) (5-6) in column 0; n = 1: p1's first C lanes."""
+    import torch
+
+    if n == 1:
+        return [v[:, :C].contiguous() for v in p1]
+    h = n // 2
+    return [torch.cat([u[:, c * h:(c + 1) * h] for c in range(C) for u in (a, b)], 1)
+            .contiguous() for a, b in zip(p1, p2)]
+
+
 def phase_group_law(rng, gen, dev, smi: str):
     """10a: ec.ec_add (K6), ec.ec_double (the doubling kernel) and
     ec.ec_scalar_mul_shared (one ec_ladder launch) at 4,096 lanes on both
     fields, with identity, P = Q and P = -Q lanes (jacobian_inputs' lanes
     0-6), against their plain versions bit for bit and against the host
-    group law on sampled lanes; ec_ladder in both bit modes on both fields
-    bit for bit against ec_ladder_plain: one scalar shared by the 4,096
-    lanes (0, 1, q, whose last add meets the negation of the sum, and a
-    random one) and one a lane over BITS_COLS x BITS_POINTS (0, 1, q - 1, q
-    and 2^254 among random ones), with the host group law on sampled lanes;
-    K7 and the doubling single-step at SINGLE_WIDTHS bit for bit; then K6
-    at its main path's width, K7 and the doubling at SINGLE_WIDTHS, and the
-    ladder (shared at 4,096 lanes; a scalar a lane at BITS_COLS x
-    BITS_POINTS, its main path, and at 1 x BITS_POINTS) timed with CUDA
-    events."""
+    group law on sampled lanes (the "group_law" path: launches zeroed just
+    before, read after; returned with fq's counts); ec_add_tree on
+    TREE_SHAPES and BITS_COLS x BITS_POINTS (tree_columns) against
+    ec_add_tree_plain and the host sum of every column; ec_ladder in both
+    bit modes on both fields bit for bit against ec_ladder_plain: one
+    scalar shared by the 4,096 lanes (0, 1, q, whose last add meets the
+    negation of the sum, and a random one) and one a lane over BITS_COLS x
+    BITS_POINTS (0, 1, q - 1, q and 2^254 among random ones), with the host
+    group law on sampled lanes; K7 and the doubling single-step at
+    SINGLE_WIDTHS bit for bit; then K6 at 1,024 lanes, ec_add_tree at
+    BITS_COLS x BITS_POINTS (its main path), K7 and the doubling at
+    SINGLE_WIDTHS, and the ladder (shared at 4,096 lanes; a scalar a lane
+    at BITS_COLS x BITS_POINTS, its main path, and at 1 x BITS_POINTS)
+    timed with CUDA events."""
     import torch
     from taiga_tpu_torch.ops import ec, ff_kernels as FK, limbs as L
 
     fe = 16 * 4
-    err, res = 0, {}
+    err, err_t, res = 0, 0, {}
     for field in ("fp", "fq"):
         spec = L.FIELDS[field]
         curve = curve_of(field)
@@ -1984,7 +2073,9 @@ def phase_group_law(rng, gen, dev, smi: str):
         Q = tuple(v[:, :W_GROUP].T.contiguous() for v in p2)
         s = int(rng.integers(1, 1 << 62)) ** 5 % q
         sl = L.int_to_limbs(s)
+        zero_counts()  # the "group_law" path: ops/ec.py's three entry points
         got = (ec.ec_add(P, Q, spec), ec.ec_double(P, spec), ec.ec_scalar_mul_shared(P, sl, spec))
+        launches = read_counts(f"group law [{field}]", "group_law")
         with FK.plain_versions():
             t0 = time.perf_counter()
             want = (ec.ec_add(P, Q, spec), ec.ec_double(P, spec))
@@ -2000,6 +2091,21 @@ def phase_group_law(rng, gen, dev, smi: str):
             outs = [to_affine(field, *(v.T for v in g), lane, jacobian=True) for g in got]
             if outs != [a + b, a + a, a * s]:
                 raise AssertionError(f"ec[{field}]: lane {lane} disagrees with the host group law")
+
+        # ec_add_tree (K6 chained) on TREE_SHAPES and 10f's 2 x 1,024,
+        # against ec_add_tree_plain and the host sum of every column
+        for C, n in TREE_SHAPES + ((BITS_COLS, BITS_POINTS),):
+            cols = tree_columns(p1, p2, C, n)
+            got_t = FK.ec_add_tree_lm(*cols, C, field)
+            with FK.plain_versions():
+                want_t = FK.ec_add_tree_lm(*cols, C, field)
+            err_t = max(err_t, compare(f"ec_add_tree[{field}, {C} x {n}]", got_t, want_t))
+            pts = host_points(field, *cols)
+            for c in range(C):
+                if to_affine(field, *got_t, c, jacobian=True) != sum(pts[c * n + 1:(c + 1) * n],
+                                                                     pts[c * n]):
+                    raise AssertionError(f"ec_add_tree[{field}, {C} x {n}]: column {c} is not "
+                                         "the host sum")
 
         # ec_ladder, a shared scalar: the base is P's 4,096 lanes (identity
         # in lanes 0 and 2)
@@ -2045,7 +2151,8 @@ def phase_group_law(rng, gen, dev, smi: str):
             ms_d = cuda_ms(lambda: ec.ec_double(P, spec), 20)
             ms_l = cuda_ms(lambda: ec.ec_scalar_mul_shared(P, sl, spec), 5)
             fq_in = dict(P=P, Q=Q, s=s, base=base, scal=scal, cols=cols, t_plain=t_plain,
-                         ladder_plain_ms=ms_ladder_plain)
+                         ladder_plain_ms=ms_ladder_plain,
+                         tree=tree_columns(p1, p2, BITS_COLS, BITS_POINTS))
             log(f"ec.ec_double at B={W_GROUP} with its two transposes {ms_d:.6f} ms; "
                 f"ec.ec_scalar_mul_shared at B={W_GROUP} (one ec_ladder launch and the "
                 f"transposes) {ms_l:.3f} ms (plain, the three helpers: {t_plain:.2f} s)   [{smi}]")
@@ -2054,7 +2161,10 @@ def phase_group_law(rng, gen, dev, smi: str):
         f"the host group law on lanes {SAMPLED}; ec_ladder equal to ec_ladder_plain on fp and "
         f"fq with a shared scalar (0, 1, q, random) at B={W_GROUP} and a scalar a lane (0, 1, "
         f"q - 1, q, 2^254 among random) at {BITS_COLS} x {BITS_POINTS}, and the host group law "
-        f"on sampled lanes")
+        f"on sampled lanes; ec_add_tree equal to ec_add_tree_plain and the host sum of every "
+        f"column on fp and fq at C x n = {TREE_SHAPES} and {BITS_COLS} x {BITS_POINTS} "
+        f"(identities, P + P and P + (-P) at the first level); ops/ec.py's launches (fq): "
+        + ", ".join(f"{k} {v}" for k, v in launches.items() if v))
 
     # K7 and the doubling single-step: bit for bit and timed at SINGLE_WIDTHS
     wide = [wide_fe(gen, SINGLE_WIDTHS[-1], dev) for _ in range(6)]
@@ -2083,7 +2193,8 @@ def phase_group_law(rng, gen, dev, smi: str):
                             widths=singles["ec_double"])
     res["ec_add_select"] = dict(widths=singles["ec_add_select"])
 
-    # K6 at its main path's width (10f's first tree level)
+    # K6 at 1,024 lanes (the first level of PR 9's bitserial tree, before
+    # ec_add_tree), and ec_add_tree at 10f's 2 x 1,024, its main path
     P, Q = fq_in["P"], fq_in["Q"]
     w6 = BITS_COLS * BITS_POINTS // 2
     p6, q6 = ([v[:w6].T.contiguous() for v in pt] for pt in (P, Q))
@@ -2091,6 +2202,17 @@ def phase_group_law(rng, gen, dev, smi: str):
     res["ec_add"] = dict(ms=cuda_ms(lambda: FK.ec_add_lm(*p6, *q6, "fq"), 50), bound=b6, B=w6)
     log(f"ec_add at B={w6}: {res['ec_add']['ms']:.6f} ms per launch (bound {b6[0]:.6f} ms by "
         f"{b6[1]})")
+    cols, C, n = fq_in["tree"], BITS_COLS, BITS_POINTS
+    ms_t = cuda_ms(lambda: FK.ec_add_tree_lm(*cols, C, "fq"), 50)
+    with FK.plain_versions():
+        pms_t = cuda_ms(lambda: FK.ec_add_tree_lm(*cols, C, "fq"), 1)
+    bound_t = bound_ms(3 * fe * (C * n + C), C * (n - 1) * 16 * MM_IMADS)
+    levels = n.bit_length() - 1
+    res["ec_add_tree"] = dict(err=err_t, ms=ms_t, plain_ms=pms_t, B=(C, n), bound=bound_t,
+                              chain_adds=levels)
+    log(f"ec_add_tree at {C} x {n}: {ms_t:.6f} ms per launch (plain, {levels} levels of "
+        f"ec_add_plain: {pms_t:.3f} ms; bound {bound_t[0]:.6f} ms by {bound_t[1]}, "
+        f"{C * (n - 1)} adds of 16 products; one chain: {levels} dependent adds)   [{smi}]")
 
     # the ladder timed: shared at W_GROUP lanes, a scalar a lane at
     # BITS_COLS x BITS_POINTS (10f's) and at 1 x BITS_POINTS, which says what
@@ -2126,7 +2248,7 @@ def phase_group_law(rng, gen, dev, smi: str):
         f"{pms:.3f} ms; a scalar a lane over {BITS_COLS} columns against 1 (the doublings "
         f"redone per column): {main['ms']:.6f} / "
         f"{ladders[('lanes', 1, BITS_POINTS)]['ms']:.6f} ms   [{smi}]")
-    return res
+    return res, launches
 
 
 def phase_ipa_list(seed: int, smi: str):
@@ -2194,70 +2316,133 @@ def phase_ipa_list(seed: int, smi: str):
 
 
 def phase_poseidon(rng, dev, smi: str):
-    """10d: permute_batch (csrc/poseidon.cu) at bench.py tier 3's 16,384
-    states against its plain version bit for bit and the host permutation
-    on sampled lanes; hash_n_batch at tier 2's (4,096, 8) and merkle_root of
-    2^14 leaves against the host hash (launch counts zeroed just before
-    them, read after: the "poseidon" path); permutations per second."""
+    """10d: permute_batch (csrc/poseidon.cu) at POSEIDON_WIDTHS states
+    against its plain version bit for bit (4,096 and 16,384) and the host
+    permutation on sampled lanes (all three; 1,048,576 only so: its plain
+    version would take a minute); the sponge kernel (hash_n_batch) at
+    lengths 1-8 against the host hash (every row), and at tier 2's (4,096,
+    8) against its plain version and the host hash; merkle_root of 2^14
+    leaves against its plain version and the host tree; each timed (a plain
+    version once: the run that is compared). Then the "poseidon" path, launch counts
+    zeroed just before and read after: permute_batch at tier 3's 16,384
+    states, hash_n_batch at (4,096, 8) (one launch), merkle_root of 2^14
+    leaves (a launch a level)."""
     import torch
     from taiga_tpu_torch.crypto import poseidon as hp
     from taiga_tpu_torch.crypto.fields import Fp
     from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L, poseidon_kernel as PK
 
     spec = L.FP
+    fe = 16 * 4
 
     def elems(count):  # (count, 16) canonical elements below 2^254 < p
         x = rng.integers(0, 1 << 16, size=(count, 16), dtype=np.int32)
         x[:, 15] &= 0x3FFF
         return torch.as_tensor(x, device=dev)
 
-    states = elems(POSEIDON_STATES * 3).reshape(POSEIDON_STATES, 3, 16)
-    got = PK.permute_batch(states)
-    with FK.plain_versions():
-        want = PK.permute_batch(states)
-        pms = cuda_ms(lambda: PK.permute_batch(states), 1)
-    err = compare("poseidon.permute_batch", (got,), (want,))
-    host = spec.array_from_mont(states[list(SAMPLED[:8])].reshape(-1, 16).cpu())
-    out = spec.array_from_mont(got[list(SAMPLED[:8])].reshape(-1, 16).cpu())
-    if out != [v for i in range(8) for v in hp.permute_ints(host[3 * i : 3 * i + 3])]:
-        raise AssertionError("poseidon.permute_batch disagrees with the host permutation")
-    ms = cuda_ms(lambda: PK.permute_batch(states), 20)
-    fe = 16 * 4
-    bound = bound_ms(2 * 3 * fe * POSEIDON_STATES,
-                     POSEIDON_PRODUCTS * MM_IMADS * POSEIDON_STATES)
+    def host_perm(states, got, lanes):
+        host = spec.array_from_mont(states[list(lanes)].reshape(-1, 16).cpu())
+        out = spec.array_from_mont(got[list(lanes)].reshape(-1, 16).cpu())
+        return out == [v for i in range(len(lanes)) for v in hp.permute_ints(host[3 * i:3 * i + 3])]
+
+    err, widths = 0, {}
+    for n in POSEIDON_WIDTHS:
+        states = elems(n * 3).reshape(n, 3, 16)
+        got = PK.permute_batch(states)
+        pms = None
+        if n < POSEIDON_WIDTHS[-1]:
+            with FK.plain_versions():
+                want, pms = once_ms(lambda: PK.permute_batch(states))
+            err = max(err, compare(f"poseidon.permute_batch[{n}]", (got,), (want,)))
+        if not host_perm(states, got, SAMPLED[:8] + (n - 1,)):
+            raise AssertionError(f"poseidon.permute_batch[{n}] disagrees with the host permutation")
+        ms = cuda_ms(lambda: PK.permute_batch(states), 20 if n < POSEIDON_WIDTHS[-1] else 5)
+        bound = bound_ms(2 * 3 * fe * n, POSEIDON_PRODUCTS * MM_IMADS * n)
+        dense = bound_ms(2 * 3 * fe * n, POSEIDON_PRODUCTS_DENSE * MM_IMADS * n)
+        widths[n] = dict(ms=ms, plain_ms=pms, bound=bound)
+        log(f"10d poseidon permute_batch at {n} states: {ms:.6f} ms per launch "
+            f"({n / (ms / 1e3):.0f} permutations/s; plain "
+            f"{'not run' if pms is None else f'{pms:.1f} ms'}; bound {bound[0]:.6f} ms by "
+            f"{bound[1]} at {POSEIDON_PRODUCTS} products a state, {dense[0]:.6f} ms at PR 8's "
+            f"{POSEIDON_PRODUCTS_DENSE}; one chain {POSEIDON_STAGES} product stages), equal to "
+            f"{'its plain version and ' if pms is not None else ''}the host permutation on "
+            f"sampled lanes")
+        del states, got
+
+    def host_hashes(msgs, hashes, length):  # every row against the host sponge
+        m_host = spec.array_from_mont(msgs.reshape(-1, 16).cpu())
+        want = [hp.poseidon_hash_n([Fp(v) for v in m_host[length * i : length * (i + 1)]]).v
+                for i in range(msgs.shape[0])]
+        if [f.v for f in PK.mont_to_fps(hashes)] != want:
+            raise AssertionError(f"poseidon.hash_n_batch[L={length}] disagrees with the host hash")
+
+    for length in range(1, 9):  # 37 messages: a block and a ragged one
+        msgs = elems(37 * length).reshape(37, length, 16)
+        host_hashes(msgs, PK.hash_n_batch(msgs, length), length)
     B, length = HASH_SHAPE
     msgs = elems(B * length).reshape(B, length, 16)
-    leaves = elems(MERKLE_LEAVES)
-    zero_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     hashes = PK.hash_n_batch(msgs, length)
-    torch.cuda.synchronize()
-    t_hash = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    with FK.plain_versions():
+        want, pms_h = once_ms(lambda: PK.hash_n_batch(msgs, length))
+    err = max(err, compare("poseidon.hash_n_batch", (hashes,), (want,)))
+    host_hashes(msgs[list(SAMPLED[:8])], hashes[list(SAMPLED[:8])], length)
+    ms_h = cuda_ms(lambda: PK.hash_n_batch(msgs, length), 20)
+    blocks = -(-length // hp.RATE)
+    bound_h = bound_ms(fe * B * (length + 1), B * blocks * POSEIDON_PRODUCTS * MM_IMADS)
+    leaves = elems(MERKLE_LEAVES)
     root = PK.merkle_root(leaves)
-    torch.cuda.synchronize()
-    t_root = time.perf_counter() - t0
-    launches = read_counts("Poseidon", "poseidon")
-    m_host = spec.array_from_mont(msgs[list(SAMPLED[:8])].reshape(-1, 16).cpu())
-    want_h = [hp.poseidon_hash_n([Fp(v) for v in m_host[length * i : length * (i + 1)]]).v
-              for i in range(8)]
-    if [f.v for f in PK.mont_to_fps(hashes[list(SAMPLED[:8])])] != want_h:
-        raise AssertionError("poseidon.hash_n_batch disagrees with the host hash")
+    with FK.plain_versions():
+        want, pms_m = once_ms(lambda: PK.merkle_root(leaves))
+    err = max(err, compare("poseidon.merkle_root", (root,), (want,)))
     level = PK.mont_to_fps(leaves)
     while len(level) > 1:
         level = [hp.poseidon_hash(level[i], level[i + 1]) for i in range(0, len(level), 2)]
     if PK.mont_to_fps(root[None])[0] != level[0]:
         raise AssertionError("poseidon.merkle_root disagrees with the host tree")
-    rate = POSEIDON_STATES / (ms / 1e3)
-    log(f"10d poseidon permute_batch at {POSEIDON_STATES} states: {ms:.6f} ms per launch "
-        f"({rate:.0f} permutations/s; plain {pms:.1f} ms; bound {bound[0]:.6f} ms by "
-        f"{bound[1]}), equal to its plain version and the host permutation; hash_n_batch at "
-        f"{HASH_SHAPE} {t_hash * 1e3:.3f} ms ({B / t_hash:.0f} hashes/s), merkle_root of "
-        f"{MERKLE_LEAVES} leaves {t_root * 1e3:.3f} ms, both equal to the host hash; launches "
-        f"{launches['poseidon']}   [{smi}]")
-    return {"poseidon": dict(err=err, ms=ms, plain_ms=pms, B=POSEIDON_STATES, bound=bound)}, \
-        launches
+    ms_m = cuda_ms(lambda: PK.merkle_root(leaves), 10)
+    bound_m = bound_ms(fe * (MERKLE_LEAVES + 1),
+                       (MERKLE_LEAVES - 1) * POSEIDON_PRODUCTS * MM_IMADS)
+    depth = MERKLE_LEAVES.bit_length() - 1
+    log(f"10d poseidon hash_n_batch equal to the host hash at L = 1..8 (37 messages each) and "
+        f"to its plain version and the host hash at {HASH_SHAPE}; at {HASH_SHAPE} {ms_h:.6f} ms per launch ({B / (ms_h / 1e3):.0f} "
+        f"hashes/s; plain {pms_h:.1f} ms; bound {bound_h[0]:.6f} ms by {bound_h[1]}; one chain "
+        f"{blocks} permutations, {blocks * POSEIDON_STAGES} product stages); merkle_root of "
+        f"{MERKLE_LEAVES} leaves equal to its plain version and the host tree, {ms_m:.6f} ms "
+        f"(plain {pms_m:.1f} ms; bound {bound_m[0]:.6f} ms by {bound_m[1]}; {depth} dependent "
+        f"levels)   [{smi}]")
+
+    states = elems(POSEIDON_STATES * 3).reshape(POSEIDON_STATES, 3, 16)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PK.permute_batch(states)
+    torch.cuda.synchronize()
+    t_perm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    PK.hash_n_batch(msgs, length)
+    torch.cuda.synchronize()
+    t_hash = time.perf_counter() - t0
+    n_hash = PK.hash_n_batch.launches
+    t0 = time.perf_counter()
+    PK.merkle_root(leaves)
+    torch.cuda.synchronize()
+    t_root = time.perf_counter() - t0
+    launches = read_counts("Poseidon", "poseidon")
+    n_root = launches["poseidon_sponge"] - n_hash
+    if (launches["poseidon"], n_hash, n_root) != (1, 1, depth):
+        raise AssertionError(f"the Poseidon path launched permute {launches['poseidon']}, the "
+                             f"sponge {n_hash} for hash_n_batch and {n_root} for merkle_root, "
+                             f"not 1, 1 and {depth}")
+    log(f"10d the poseidon path (host clock): permute_batch at {POSEIDON_STATES} states "
+        f"{t_perm * 1e3:.3f} ms, hash_n_batch at {HASH_SHAPE} {t_hash * 1e3:.3f} ms (1 launch), "
+        f"merkle_root of {MERKLE_LEAVES} leaves {t_root * 1e3:.3f} ms ({n_root} launches)")
+    main = widths[POSEIDON_STATES]
+    return {"poseidon": dict(err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                             B=POSEIDON_STATES, bound=main["bound"], widths=widths),
+            "poseidon_sponge": dict(err=err, ms=ms_h, plain_ms=pms_h, B=HASH_SHAPE, bound=bound_h,
+                                    chain_stages=blocks * POSEIDON_STAGES, merkle_ms=ms_m,
+                                    merkle_plain_ms=pms_m, merkle_bound=bound_m,
+                                    merkle_launches=n_root)}, launches
 
 
 def phase_keygen_device(pk, smi: str):
@@ -2290,7 +2475,8 @@ def phase_keygen_device(pk, smi: str):
 
 def phase_parallel(pk, seed: int, dev, smi: str):
     """10f: the sharded layer at world 1 over NCCL in this process:
-    sharded_msm_multi (Pippenger, and the bitserial K7 ladder), ntt_mesh
+    sharded_msm_multi (Pippenger, and the bitserial form: one ec_ladder and
+    one ec_add_tree launch), ntt_mesh
     (k = 13), batch_hash_step, sharded_point_sum and prove_step against
     their unsharded counterparts, and a grouped create_proofs_batch of 2
     compliance proofs against the ungrouped batch, byte for byte. Launch
@@ -2362,7 +2548,8 @@ def phase_parallel(pk, seed: int, dev, smi: str):
         if not [pt(v) for v in bits] == [pt(v) for v in ref_b] == host_b:
             raise AssertionError("the bitserial sharded_msm_multi differs from msm_multi or "
                                  "the host MSM")
-        want_bits = {"ec_ladder": 1, "ec_add_select": 0, "ec_double": 0, "ec_add": 10}
+        want_bits = {"ec_ladder": 1, "ec_add_tree": 1, "ec_add_select": 0, "ec_double": 0,
+                     "ec_add": 0}
         if {name: in_bits[name] for name in want_bits} != want_bits:
             raise AssertionError(f"the bitserial sharded_msm_multi launched {in_bits}, not "
                                  f"{want_bits}")
@@ -2426,20 +2613,21 @@ def main(argv=None) -> int:
     rng10 = np.random.default_rng(args.seed + 50)
     gen10 = torch.Generator(device=dev)
     gen10.manual_seed(args.seed + 50)
-    group_law = phase_group_law(rng10, gen10, dev, smi)
+    group_law, launches_gl = phase_group_law(rng10, gen10, dev, smi)
     res["ec_double"] = group_law["ec_double"]
     res["ec_ladder"] = group_law["ec_ladder"]
     res["ec_add_select"]["widths"] = group_law["ec_add_select"]["widths"]
-    k6 = group_law["ec_add"]  # K6 on its main path's width
-    res["ec_add"].update(path_ms=k6["ms"], path_bound=k6["bound"], path_B=k6["B"])
+    res["ec_add_tree"] = group_law["ec_add_tree"]
+    k6 = group_law["ec_add"]  # K6 at 1,024 lanes
+    res["ec_add"].update(narrow_ms=k6["ms"], narrow_bound=k6["bound"], narrow_B=k6["B"])
     launches_ipa = phase_ipa_list(args.seed + 51, smi)
     res_p, launches_pos = phase_poseidon(rng10, dev, smi)
     res.update(res_p)
     phase_keygen_device(pk, smi)
     launches_par = phase_parallel(pk, args.seed + 52, dev, smi)
     log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
-    by_path = {"native": launches, "device": launches, "ipa_list": launches_ipa,
-               "poseidon": launches_pos, "parallel": launches_par}
+    by_path = {"native": launches, "device": launches, "group_law": launches_gl,
+               "ipa_list": launches_ipa, "poseidon": launches_pos, "parallel": launches_par}
 
     for what, (stages, total) in (("native IPA", native), ("device IPA", device)):
         log(f"stage wall times of a warm k={K} proof, {what}, on {smi}:")
@@ -2461,8 +2649,8 @@ def main(argv=None) -> int:
     for name, attr, src, replaces, paths in KERNELS:
         r = res[name]
         # "launches": the run of the kernel's main path, its first path
-        # (phase 5's proof for K1-K5 and the chained forms); K7 and the
-        # doubling single-step are on no path since ec_ladder chains them
+        # (phase 5's proof for K1-K5 and the chained forms); K7 is on no
+        # path since ec_ladder chains it
         main_path = next((p for p in paths if p in by_path), None)
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                      "launches": by_path[main_path][name] if main_path else 0,
@@ -2470,6 +2658,7 @@ def main(argv=None) -> int:
                      "launches_proof": launches[name], "launches_batch": launches_b[name],
                      "launches_tx": launches_tx[name], "launches_leg": launches_leg[name],
                      "launches_vamp_ir": launches_vir[name],
+                     "launches_group_law": launches_gl[name],
                      "launches_ipa_list": launches_ipa[name],
                      "launches_poseidon": launches_pos[name],
                      "launches_parallel": launches_par[name],
@@ -2477,10 +2666,19 @@ def main(argv=None) -> int:
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                      "library_ms": None, "ms_traces": TRACES.get(name)})
-        if "path_ms" in r:  # K6 at the width of its main path (phase 10a)
-            rows[-1].update(path_ms=r["path_ms"], path_B=r["path_B"],
-                            path_bound_ms=r["path_bound"][0], path_bound_by=r["path_bound"][1])
-        if "widths" in r:  # K7 and the doubling single-step at SINGLE_WIDTHS (phase 10a)
+        if "narrow_ms" in r:  # K6 at 1,024 lanes (phase 10a)
+            rows[-1].update(narrow_ms=r["narrow_ms"], narrow_B=r["narrow_B"],
+                            narrow_bound_ms=r["narrow_bound"][0],
+                            narrow_bound_by=r["narrow_bound"][1])
+        if "chain_adds" in r:  # ec_add_tree: one chain's dependent adds
+            rows[-1].update(chain_adds=r["chain_adds"])
+        if "merkle_ms" in r:  # the sponge: merkle_root of MERKLE_LEAVES, a launch a level
+            rows[-1].update(chain_stages=r["chain_stages"], merkle_ms=r["merkle_ms"],
+                            merkle_plain_ms=r["merkle_plain_ms"],
+                            merkle_bound_ms=r["merkle_bound"][0],
+                            merkle_bound_by=r["merkle_bound"][1],
+                            merkle_launches=r["merkle_launches"])
+        if "widths" in r:  # K7, the doubling (10a) and Poseidon (10d) at several widths
             rows[-1].update({f"{k}_by_width": {B: w[k] for B, w in r["widths"].items()}
                              for k in ("ms", "plain_ms")},
                             bound_ms_by_width={B: w["bound"][0] for B, w in r["widths"].items()})

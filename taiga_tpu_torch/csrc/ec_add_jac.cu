@@ -1,23 +1,47 @@
 // K6 / K7: complete Jacobian point addition over limb-major (16, B)
 // coordinates, plain (K6) and with a lane select sel ? P1 + P2 : P1 (K7);
-// the Jacobian doubling on its own; and K7 chained into the whole
-// double-and-add ladder in one launch (ec_ladder).
+// the Jacobian doubling on its own; K7 chained into the whole
+// double-and-add ladder in one launch (ec_ladder); and K6 chained into each
+// column's halving tree in one launch (ec_add_tree).
 //
 // Replaces taiga_tpu/ops/ff_kernels.py::ec_add_lm (K6) and
-// ::ec_add_select_lm (K7), core _ec_add_core, and the ladders over K7 and
-// the doubling of taiga_tpu/ops/ec.py::ec_scalar_mul_shared (:144-161) and
-// taiga_tpu/parallel/sharded.py::_local_msm_bitserial (:58-86). The
-// doubling (taiga_ec_double_jac) replaces no Pallas kernel: it is the XLA
-// program of taiga_tpu/ops/ec.py::ec_double (dbl-2009-l), with no case
-// analysis: an identity lane (Z = 0) keeps dbl-2009-l's X3, Y3 and gets
-// Z3 = 2YZ = 0, as in the reference, where K6(P, P) would return P.
+// ::ec_add_select_lm (K7), core _ec_add_core, the ladders over K7 and the
+// doubling of taiga_tpu/ops/ec.py::ec_scalar_mul_shared (:144-161) and
+// taiga_tpu/parallel/sharded.py::_local_msm_bitserial (:58-86), and that
+// function's halving tree over K6 (:84-89). The doubling
+// (taiga_ec_double_jac) replaces no Pallas kernel: it is the XLA program of
+// taiga_tpu/ops/ec.py::ec_double (dbl-2009-l), with no case analysis: an
+// identity lane (Z = 0) keeps dbl-2009-l's X3, Y3 and gets Z3 = 2YZ = 0,
+// as in the reference, where K6(P, P) would return P.
 //
-// K6, one thread a lane (ec_add_jac below): the general add (16 products)
-// and the doubling (7) both computed, then selected in the reference's
-// order -- the doubling where h = r = 0, Z = 0 where h = 0 but r != 0
-// (P1 = -P2), and the other operand where one of them is the identity
-// (Z = 0). The flags come from the canonical Montgomery limbs, as in the
-// reference. 6 coalesced inputs, 3 outputs: bound by operations.
+// K6, one thread a lane (ec_add_jac below): the general add (16 products),
+// then the reference's cases -- the doubling where h = r = 0, Z = 0 where
+// h = 0 but r != 0 (P1 = -P2), and the other operand where one of them is
+// the identity (Z = 0). The flags come from the canonical Montgomery limbs,
+// as in the reference. The doubling (7 products) runs under a branch
+// uniform over the warp, taken where any of its lanes has h = r = 0:
+// computed on every lane and selected, as before, 30% of the products
+// served only such lanes and its values held 168 registers (128 now; K6
+// took 1.615 ms at 1,048,576 lanes against 1.014 now, PERF.md section 6;
+// K7's group kernel with every lane selected took 1.618). 6 coalesced
+// inputs, 3 outputs: bound by operations.
+//
+// ec_add_tree: the bitserial MSM sums each column's n ladder outputs by the
+// reference's halving tree (lane i + lane i + n / 2, a level at a time;
+// Jacobian coordinates are not canonical, so no other pairing gives the
+// reference's bits). That was log2 n dependent K6 launches, each one add's
+// latency on a few blocks, paced by the host, and 6 copies of half-columns
+// a level. Here one block sums a column: the first level reads the points
+// from device memory, every sum stays in shared memory (n / 2 points x 96
+// bytes, dynamic shared memory above 48 KB), a block barrier separates the
+// levels, and the adds run on K7's group core (8 threads an add, the
+// doubling only in a group whose lane needs it). One thread an add took
+// 0.321 ms at 2 x 1,024 against 0.273 for the groups: the narrow levels,
+// where a chain of 16 products is the latency, dominate (PERF.md section
+// 6). A column of more than kTreeMaxN = 4,096 points (its first level's
+// 2,048 sums fill 192 KB of shared memory) first runs K6 launches, a level
+// each, in the wrapper. What bounds it: one chain of log2 n dependent adds
+// (5 product stages each), on C SMs.
 //
 // The doubling, one thread a lane (ec_double_jac below): 7 products. Its
 // group form (3 stages on 8 threads) took 4x the time at 1,048,576 lanes
@@ -78,11 +102,14 @@ __device__ __forceinline__ void ec_double_jac(taiga::Fe& dx, taiga::Fe& dy, taig
   dz = fe_add(yz, yz, F);
 }
 
+// The general add (16 products), and the doubling (7) only where a lane of
+// the warp needs it: `mask` holds the warp's threads that run this add
+// together.
 __device__ __forceinline__ void ec_add_jac(taiga::Fe& xo, taiga::Fe& yo, taiga::Fe& zo,
                                            const taiga::Fe& x1, const taiga::Fe& y1,
                                            const taiga::Fe& z1, const taiga::Fe& x2,
                                            const taiga::Fe& y2, const taiga::Fe& z2,
-                                           const taiga::FieldConsts& F) {
+                                           const taiga::FieldConsts& F, unsigned mask) {
   using taiga::Fe;
   using taiga::fe_add;
   using taiga::fe_is_zero;
@@ -101,26 +128,25 @@ __device__ __forceinline__ void ec_add_jac(taiga::Fe& xo, taiga::Fe& yo, taiga::
   Fe hhh = fe_mul(h, hh, F);
   Fe v = fe_mul(u1, hh, F);
   Fe r2 = fe_mul(r, r, F);
-  Fe x3 = fe_sub(fe_sub(r2, hhh, F), fe_add(v, v, F), F);
-  Fe y3 = fe_sub(fe_mul(r, fe_sub(v, x3, F), F), fe_mul(s1, hhh, F), F);
-  Fe z3 = fe_mul(fe_mul(z1, z2, F), h, F);
-
-  // doubling (a = 0)
-  Fe dx, dy, dz;
-  ec_double_jac(dx, dy, dz, x1, y1, z1, F);
+  xo = fe_sub(fe_sub(r2, hhh, F), fe_add(v, v, F), F);
+  yo = fe_sub(fe_mul(r, fe_sub(v, xo, F), F), fe_mul(s1, hhh, F), F);
+  zo = fe_mul(fe_mul(z1, z2, F), h, F);
 
   const bool p_inf = fe_is_zero(z1);
   const bool q_inf = fe_is_zero(z2);
   const bool h_zero = fe_is_zero(h);
-  const bool r_zero = fe_is_zero(r);
   const bool both = !p_inf && !q_inf;
-  const bool is_double = both && h_zero && r_zero;
-  const bool is_cancel = both && h_zero && !r_zero;
-
-  xo = is_double ? dx : x3;
-  yo = is_double ? dy : y3;
-  zo = is_double ? dz : z3;
-  if (is_cancel) zo = Fe{};
+  const bool is_double = both && h_zero && fe_is_zero(r);
+  if (both && h_zero && !is_double) zo = Fe{};  // P1 = -P2
+  if (__any_sync(mask, is_double)) {  // dbl-2009-l of P1, uniform over the warp
+    Fe dx, dy, dz;
+    ec_double_jac(dx, dy, dz, x1, y1, z1, F);
+    if (is_double) {
+      xo = dx;
+      yo = dy;
+      zo = dz;
+    }
+  }
   xo = p_inf ? x2 : (q_inf ? x1 : xo);
   yo = p_inf ? y2 : (q_inf ? y1 : yo);
   zo = p_inf ? z2 : (q_inf ? z1 : zo);
@@ -131,7 +157,8 @@ __global__ void k_ec_add_jac(const uint32_t* __restrict__ x1, const uint32_t* __
                              const uint32_t* __restrict__ y2, const uint32_t* __restrict__ z2,
                              uint32_t* __restrict__ xo, uint32_t* __restrict__ yo,
                              uint32_t* __restrict__ zo, int64_t B, int field) {
-  int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned wmask = __ballot_sync(0xFFFFFFFFu, lane < B);  // the warp's live lanes
   if (lane >= B) return;
   const taiga::FieldConsts F = taiga::kFields[field];
   taiga::Fe ax = taiga::load_fe(x1, B, lane);
@@ -141,7 +168,7 @@ __global__ void k_ec_add_jac(const uint32_t* __restrict__ x1, const uint32_t* __
   taiga::Fe by = taiga::load_fe(y2, B, lane);
   taiga::Fe bz = taiga::load_fe(z2, B, lane);
   taiga::Fe rx, ry, rz;
-  ec_add_jac(rx, ry, rz, ax, ay, az, bx, by, bz, F);
+  ec_add_jac(rx, ry, rz, ax, ay, az, bx, by, bz, F, wmask);
   taiga::store_fe(xo, B, lane, rx);
   taiga::store_fe(yo, B, lane, ry);
   taiga::store_fe(zo, B, lane, rz);
@@ -273,6 +300,83 @@ k_jac_ladder(const uint32_t* __restrict__ bxs, const uint32_t* __restrict__ bys,
   }
 }
 
+// --- ec_add_tree: each column's halving tree in one launch -----------------
+
+constexpr int kTreeThreads = 256;
+constexpr int64_t kTreeMaxN = 4096;  // a column's points a block takes (it holds n / 2)
+
+// A point of the tree's shared memory: coordinate k (x, y, z) of point i,
+// word j at [(k * 8 + j) * cap + i], so a warp's neighbouring points are
+// neighbouring words.
+__device__ __forceinline__ Fe tree_load(const uint32_t* sm, int64_t cap, int k, int64_t i) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < taiga::kWords; j++) r.w[j] = sm[(k * taiga::kWords + j) * cap + i];
+  return r;
+}
+
+__device__ __forceinline__ void tree_store(uint32_t* sm, int64_t cap, int k, int64_t i,
+                                           const Fe& a) {
+#pragma unroll
+  for (int j = 0; j < taiga::kWords; j++) sm[(k * taiga::kWords + j) * cap + i] = a.w[j];
+}
+
+// Block c sums column c, points c * n .. c * n + n - 1 of (16, C * n), by
+// the reference's halving tree: at each level of h = n / 2, ..., 1, point
+// i < h becomes point i + point i + h (the complete add, P1 = point i). The
+// first level reads the points from device memory; its sums and every
+// later level's stay in shared memory; block-level barriers separate the
+// levels. A level's adds run on the block's 32 groups of 8 threads
+// (ec_add_jac_group, K7's core: 5 product stages an add).
+__global__ void __launch_bounds__(kTreeThreads)
+k_ec_add_tree(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+              const uint32_t* __restrict__ z, uint32_t* __restrict__ xo,
+              uint32_t* __restrict__ yo, uint32_t* __restrict__ zo, int64_t n, int64_t C,
+              int field) {
+  extern __shared__ uint32_t tree[];
+  constexpr int kUnits = kTreeThreads / taiga::kGroup;  // adds at a time
+  __shared__ taiga::JacScratch scratch[kUnits];
+  const int64_t col = blockIdx.x, off = col * n, total = C * n, cap = n / 2;
+  const int tid = threadIdx.x;
+  const taiga::FieldConsts F = taiga::kFields[field];
+  if (n == 1) {
+    if (tid == 0) {
+      taiga::store_fe(xo, C, col, taiga::load_fe(x, total, off));
+      taiga::store_fe(yo, C, col, taiga::load_fe(y, total, off));
+      taiga::store_fe(zo, C, col, taiga::load_fe(z, total, off));
+    }
+    return;
+  }
+  const int g = tid / taiga::kGroup, rank = tid % taiga::kGroup;
+  const unsigned gmask = taiga::group_mask(tid);
+  for (int64_t h = cap; h >= 1; h >>= 1) {
+    const bool first = h == cap;
+    for (int64_t i = g; i < h; i += kUnits) {  // uniform over the group
+      Fe p[6];
+#pragma unroll
+      for (int k = 0; k < 3; k++) {
+        const uint32_t* src = k == 0 ? x : (k == 1 ? y : z);
+        p[k] = first ? taiga::load_fe(src, total, off + i) : tree_load(tree, cap, k, i);
+        p[3 + k] = first ? taiga::load_fe(src, total, off + i + h) : tree_load(tree, cap, k, i + h);
+      }
+      Fe rx, ry, rz;
+      taiga::ec_add_jac_group(rx, ry, rz, p[0], p[1], p[2], p[3], p[4], p[5], F, scratch[g],
+                              rank, gmask);
+      if (rank == 0) {
+        tree_store(tree, cap, 0, i, rx);
+        tree_store(tree, cap, 1, i, ry);
+        tree_store(tree, cap, 2, i, rz);
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    taiga::store_fe(xo, C, col, tree_load(tree, cap, 0, 0));
+    taiga::store_fe(yo, C, col, tree_load(tree, cap, 1, 0));
+    taiga::store_fe(zo, C, col, tree_load(tree, cap, 2, 0));
+  }
+}
+
 int64_t group_blocks(int64_t lanes) { return (lanes + kJacLanes - 1) / kJacLanes; }
 
 }  // namespace
@@ -320,5 +424,21 @@ extern "C" int taiga_ec_ladder(const uint32_t* bx, const uint32_t* by, const uin
     return (int)cudaErrorInvalidValue;
   k_jac_ladder<<<(unsigned)group_blocks(total), kJacThreads, 0, stream>>>(
       bx, by, bz, scalars, lane_stride, bits, xo, yo, zo, n, total, field);
+  return (int)cudaGetLastError();
+}
+
+// The halving tree of each of C columns of n points (16, C * n) -> (16, C);
+// n a power of two, at most kTreeMaxN.
+extern "C" int taiga_ec_add_tree(const uint32_t* x, const uint32_t* y, const uint32_t* z,
+                                 uint32_t* xo, uint32_t* yo, uint32_t* zo, int64_t n, int64_t C,
+                                 int field, cudaStream_t stream) {
+  if (C <= 0) return 0;
+  if (n < 1 || n > kTreeMaxN || (n & (n - 1))) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      k_ec_add_tree, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)(3 * taiga::kWords * sizeof(uint32_t) * (kTreeMaxN / 2)));
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = 3 * taiga::kWords * sizeof(uint32_t) * (size_t)(n / 2);
+  k_ec_add_tree<<<(unsigned)C, kTreeThreads, smem, stream>>>(x, y, z, xo, yo, zo, n, C, field);
   return (int)cudaGetLastError();
 }

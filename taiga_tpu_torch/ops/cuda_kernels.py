@@ -98,10 +98,12 @@ _ARGTYPES = {
         "taiga_ec_double_jac": [_VP] * 6 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_ladder": [_VP] * 4 + [_I64, ctypes.c_int] + [_VP] * 3
                            + [_I64, _I64, ctypes.c_int, _VP],
+        "taiga_ec_add_tree": [_VP] * 6 + [_I64, _I64, ctypes.c_int, _VP],
     },
     "poseidon": {
-        "taiga_poseidon_set_consts": [_VP, _VP],
+        "taiga_poseidon_set_consts": [_VP] * 6,
         "taiga_poseidon_permute": [_VP, _VP, _I64, _VP],
+        "taiga_poseidon_sponge": [_VP, _VP, _I64, ctypes.c_int, _VP],
     },
 }
 

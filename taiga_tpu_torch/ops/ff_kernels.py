@@ -13,6 +13,7 @@ warp's lanes read neighbouring words.
      ec_horner_lm       K2 chained: a Horner evaluation  csrc/ec_add_proj.cu
   K5 ec_fold_shared_lm  G_lo + [s] G_hi, one shared s  csrc/ec_fold_shared.cu
   K6 ec_add_lm          complete Jacobian add          csrc/ec_add_jac.cu
+     ec_add_tree_lm     K6 chained: columns' halving trees  csrc/ec_add_jac.cu
   K7 ec_add_select_lm   sel ? P1 + P2 : P1 (Jacobian)  csrc/ec_add_jac.cu
      ec_ladder_lm       K7 chained: double-and-add     csrc/ec_add_jac.cu
      ec_double_lm       Jacobian doubling (dbl-2009-l) csrc/ec_add_jac.cu
@@ -46,10 +47,10 @@ _force_plain = False
 @contextlib.contextmanager
 def plain_versions():
     """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner,
-    ec_ladder, ec_double, and poseidon_kernel.permute_batch) runs its plain version,
-    on any device. Used to hold the kernels' results against the plain
-    path. The flag is module state: it covers every thread, the pipelined
-    prover's worker included."""
+    ec_ladder, ec_double, ec_add_tree, and poseidon_kernel's permute_batch
+    and hash_n_batch) runs its plain version, on any device. Used to hold
+    the kernels' results against the plain path. The flag is module state:
+    it covers every thread, the pipelined prover's worker included."""
     global _force_plain
     prev, _force_plain = _force_plain, True
     try:
@@ -298,6 +299,27 @@ def ec_add_plain(x1, y1, z1, x2, y2, z2, field: str = "fq"):
     return _ec_add_core(x1, y1, z1, x2, y2, z2, field)
 
 
+def _tree_level(x, y, z, C: int, field: str, add):
+    """One level of the halving tree over C columns of n points (16, C n):
+    lane i of each column + lane i + n / 2 (`add`: K6 or its plain
+    version). Returns 3 x (16, C n / 2)."""
+    n = x.shape[1] // C
+    h = n // 2
+    cols = [v.reshape(NLIMBS, C, n) for v in (x, y, z)]
+    return add(*(v[:, :, :h].reshape(NLIMBS, C * h).contiguous() for v in cols),
+               *(v[:, :, h:].reshape(NLIMBS, C * h).contiguous() for v in cols), field)
+
+
+def ec_add_tree_plain(x, y, z, C: int, field: str = "fq"):
+    """Plain version of ec_add_tree: each column's halving tree (the
+    reference's pairing, taiga_tpu/parallel/sharded.py:84-89), level by
+    level over ec_add_plain."""
+    pts = (x, y, z)
+    while pts[0].shape[1] > C:
+        pts = _tree_level(*pts, C, field, ec_add_plain)
+    return pts
+
+
 def ec_add_select_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     """Plain version of K7: sel ? P1 + P2 : P1 (Jacobian), lane-wise. With
     no lane selected that is P1, and no add is computed."""
@@ -539,6 +561,37 @@ def ec_add_lm(x1, y1, z1, x2, y2, z2, field: str = "fq"):
     return outs
 
 
+TREE_MAX_N = 4096  # a column's points the tree kernel takes (kTreeMaxN, csrc/ec_add_jac.cu)
+
+
+def ec_add_tree_lm(x, y, z, C: int, field: str = "fq"):
+    """K6 chained: the sum of each of C columns of n Jacobian points
+    (16, C n) limb-major (column c: lanes c n .. c n + n - 1; n a power of
+    two) by the reference's halving tree -- at each level point i + point
+    i + n / 2, the complete add -- in one launch (one block a column,
+    its points in shared memory). A column of more than TREE_MAX_N points
+    first runs K6 launches, a level each, down to TREE_MAX_N. Returns
+    3 x (16, C)."""
+    total = x.shape[-1]
+    for nm, t in zip(("x", "y", "z"), (x, y, z)):
+        check_lm(nm, t, NLIMBS, total)
+    n = total // max(C, 1)
+    if C < 1 or n < 1 or n * C != total or n & (n - 1):
+        raise ValueError(f"ec_add_tree: {total} lanes are not C = {C} columns of a power of two")
+    if not use_kernel(x, y, z):
+        return ec_add_tree_plain(x, y, z, C, field)
+    pts = (x, y, z)
+    while pts[0].shape[1] // C > TREE_MAX_N:
+        pts = _tree_level(*pts, C, field, ec_add_lm)
+    outs = tuple(torch.empty((NLIMBS, C), dtype=x.dtype, device=x.device) for _ in range(3))
+    so = CK.lib("ec_add_jac")
+    CK.check(so.taiga_ec_add_tree(*map(_ptr, pts + outs), pts[0].shape[1] // C, C,
+                                  CK.FIELD_IDS[field], CK.stream_ptr(x.device)),
+             "ec_add_tree")
+    ec_add_tree_lm.launches += 1
+    return outs
+
+
 def ec_add_select_lm(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     """K7: Jacobian add with lane select, sel ? P1 + P2 : P1. Points
     (16, B); sel (1, B) int32 (nonzero selects)."""
@@ -631,6 +684,7 @@ ec_add_proj_sel_lm.launches = 0
 ec_seg_rounds_lm.launches = 0
 ec_horner_lm.launches = 0
 ec_add_lm.launches = 0
+ec_add_tree_lm.launches = 0
 ec_add_select_lm.launches = 0
 ec_ladder_lm.launches = 0
 ec_double_lm.launches = 0

@@ -7,8 +7,9 @@ is what `Pspec(AXIS)` gives a device. Every function here takes this rank's
 shard and returns the replicated result on every rank:
 
   sharded_msm / sharded_msm_multi: each rank reduces its points (Pippenger,
-      or the bitserial ladder, ec_ladder), the (C, 3, 16) partials are all-gathered
-      and folded in rank order with ec.ec_add (K6);
+      or the bitserial ladder, ec_ladder, then ec_add_tree), the
+      (C, 3, 16) partials are all-gathered and folded in rank order with
+      ec.ec_add (K6);
   batch_hash_step: each rank hashes its share of a batch (Poseidon kernel),
       the hashes are all-gathered;
   sharded_point_sum: K3 Hillis-Steele rounds over the local points, the
@@ -123,21 +124,16 @@ def _local_msm_bitserial(pxs, pys, pzs, sls, field: str, bits: int = 255):
     _local_msm_bitserial): acc (C, n) lanes, for bit i (LSB first) of every
     scalar, acc = bit ? acc + base : acc, then base = 2 base, the whole
     ladder in one ec_ladder launch (K7 chained with the doubling, the bit
-    per lane); last, each column's lanes are summed by a halving tree of
-    K6. Returns (C, 3, 16) Jacobian."""
+    per lane); last, each column's lanes are summed by the reference's
+    halving tree in one ec_add_tree launch (K6 chained). Returns (C, 3, 16)
+    Jacobian."""
     C, n = sls.shape[0], sls.shape[1]
     if n & (n - 1):
         raise ValueError(f"the bitserial tree needs a power-of-two local shard, got {n}")
     base = [v.T.contiguous() for v in (pxs, pys, pzs)]  # (16, n)
     acc = FK.ec_ladder_lm(*base, sls.contiguous(), bits, field)  # (16, C * n)
-    acc = [v.reshape(L.NLIMBS, C, n) for v in acc]
-    while n > 1:
-        h = n // 2
-        out = FK.ec_add_lm(*(v[:, :, :h].reshape(L.NLIMBS, C * h).contiguous() for v in acc),
-                           *(v[:, :, h:].reshape(L.NLIMBS, C * h).contiguous() for v in acc),
-                           field)
-        acc, n = [v.reshape(L.NLIMBS, C, h) for v in out], h
-    return torch.stack([v[:, :, 0].T for v in acc], dim=1)  # (C, 3, 16)
+    sums = FK.ec_add_tree_lm(*acc, C, field)  # (16, C)
+    return torch.stack([v.T for v in sums], dim=1)  # (C, 3, 16)
 
 
 STRATEGIES = ("pippenger", "bitserial")
