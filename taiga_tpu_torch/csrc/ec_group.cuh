@@ -73,12 +73,36 @@ __device__ __forceinline__ Fe get_row(const GroupScratch& s, int k) {
   return Fe{{lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w}};
 }
 
+// The Montgomery product as one called copy, which the Jacobian core's
+// product stages, the Poseidon kernels and the MSMs' chained kernels
+// (csrc/ec_add_proj.cu) call. Inlined at each stage of the ladder (5 a
+// step, and the 3 of the doubling of P1), a step was 6,624 SASS
+// instructions; where the warps of an SM ran
+// different stages at once (their lanes' bits differ) they missed the
+// instruction cache, and a ladder with a scalar a lane took 2x the time of
+// one with a shared scalar. Called, the ladder is 2,616 instructions and
+// the two take the same time (an NVIDIA H100, PERF.md section 6). The
+// operands pass by value, in registers.
+__device__ __noinline__ Fe fe_mul_call(const Fe a, const Fe b, const FieldConsts F) {
+  return fe_mul(a, b, F);
+}
+
+// The called product as a functor, for the formulas templated on their
+// product (field.cuh's MulInline is the inlined one).
+struct MulCall {
+  __device__ __forceinline__ Fe operator()(const Fe& a, const Fe& b, const FieldConsts& F) const {
+    return fe_mul_call(a, b, F);
+  }
+};
+
 // One product stage: rank r < 6 writes its product a*b as row r, and every
-// thread of the group reads all six rows back.
+// thread of the group reads all six rows back. `Mul` computes the product
+// (inlined by default, as K5 runs it).
+template <class Mul = MulInline>
 __device__ __forceinline__ void product_stage(Fe (&out)[6], const Fe& a, const Fe& b,
                                               const FieldConsts& F, GroupScratch& s, int rank,
                                               unsigned mask) {
-  const Fe prod = fe_mul(a, b, F);
+  const Fe prod = Mul()(a, b, F);
   if (rank < 6) put_row(s, rank, prod);
   __syncwarp(mask);
 #pragma unroll
@@ -89,6 +113,7 @@ __device__ __forceinline__ void product_stage(Fe (&out)[6], const Fe& a, const F
 // (x3 : y3 : z3) = (x1 : y1 : z1) + (x2 : y2 : z2), computed by the kGroup
 // threads of `mask` (this thread's rank in the group: `rank`), each passing
 // the same operands; `s` is the group's scratch. Every thread gets the sum.
+template <class Mul = MulInline>
 __device__ __forceinline__ void ec_add_proj_group(Fe& x3, Fe& y3, Fe& z3,
                                                   const Fe& x1, const Fe& y1, const Fe& z1,
                                                   const Fe& x2, const Fe& y2, const Fe& z2,
@@ -100,8 +125,8 @@ __device__ __forceinline__ void ec_add_proj_group(Fe& x3, Fe& y3, Fe& z3,
   const Fe u1 = pick6(rank, x1, y1, z1, x1, y1, x1), v1 = fe_sel(rank == 3, y1, z1);
   const Fe u2 = pick6(rank, x2, y2, z2, x2, y2, x2), v2 = fe_sel(rank == 3, y2, z2);
   Fe pa[6];
-  product_stage(pa, fe_sel(sum, fe_add(u1, v1, F), u1), fe_sel(sum, fe_add(u2, v2, F), u2),
-                F, s, rank, mask);
+  product_stage<Mul>(pa, fe_sel(sum, fe_add(u1, v1, F), u1),
+                     fe_sel(sum, fe_add(u2, v2, F), u2), F, s, rank, mask);
 
   // the chain between the stages, as in ec_add_proj
   Fe t0 = pa[0], t1 = pa[1], t2 = pa[2];
@@ -116,8 +141,44 @@ __device__ __forceinline__ void ec_add_proj_group(Fe& x3, Fe& y3, Fe& z3,
 
   // stage B: t3 t1, t4 yy, yy t0, t1 zz, t0 t3, zz t4
   Fe pb[6];
-  product_stage(pb, pick6(rank, t3, t4, yy, t1, t0, zz), pick6(rank, t1, yy, t0, zz, t3, t4),
-                F, s, rank, mask);
+  product_stage<Mul>(pb, pick6(rank, t3, t4, yy, t1, t0, zz),
+                     pick6(rank, t1, yy, t0, zz, t3, t4), F, s, rank, mask);
+  x3 = fe_sub(pb[0], pb[1], F);
+  y3 = fe_add(pb[2], pb[3], F);
+  z3 = fe_add(pb[5], pb[4], F);
+}
+
+// (x3 : y3 : z3) = 2 (x : y : z): the RCB add's own polynomials at P = Q,
+// with fewer field operations before and between the product stages.
+// Stage A's products are x x, y y, z z, x y, y z, x z: at P = Q the add's
+// (x1 + y1)(x2 + y2) - (t0 + t1) is 2 x y, and likewise 2 y z and 2 x z,
+// so those three are one doubling each and no operand needs an addition.
+// The chain from there on and stage B are ec_add_proj_group's. Every
+// value is the add's field value, and a canonical value (below p, as every
+// operation here returns for canonical inputs) has one representation, so
+// the limbs equal ec_add_proj(P, P)'s for every canonical (x : y : z),
+// on the curve or not (tests/test_torch_ff_kernels.py holds the plain
+// mirror, ff_kernels._ec_dbl_proj_core, against K2's plain version).
+template <class Mul = MulInline>
+__device__ __forceinline__ void ec_dbl_proj_group(Fe& x3, Fe& y3, Fe& z3, const Fe& x,
+                                                  const Fe& y, const Fe& z,
+                                                  const FieldConsts& F, GroupScratch& s,
+                                                  int rank, unsigned mask) {
+  Fe pa[6];
+  product_stage<Mul>(pa, pick6(rank, x, y, z, x, y, x), pick6(rank, x, y, z, y, z, z), F, s,
+                     rank, mask);
+  Fe t0 = pa[0], t1 = pa[1], t2 = pa[2];
+  const Fe t3 = fe_dbl(pa[3], F);
+  const Fe t4 = fe_dbl(pa[4], F);
+  Fe yy = fe_dbl(pa[5], F);
+  t0 = fe_add(fe_dbl(t0, F), t0, F);
+  t2 = fe_mul15(t2, F);
+  const Fe zz = fe_add(t1, t2, F);
+  t1 = fe_sub(t1, t2, F);
+  yy = fe_mul15(yy, F);
+  Fe pb[6];
+  product_stage<Mul>(pb, pick6(rank, t3, t4, yy, t1, t0, zz),
+                     pick6(rank, t1, yy, t0, zz, t3, t4), F, s, rank, mask);
   x3 = fe_sub(pb[0], pb[1], F);
   y3 = fe_add(pb[2], pb[3], F);
   z3 = fe_add(pb[5], pb[4], F);
@@ -191,18 +252,6 @@ __device__ __forceinline__ Fe either(bool dbl_rank, const Fe& add, const Fe& dbl
   } else {
     return dbl;
   }
-}
-
-// The Jacobian core's Montgomery product, one copy that every product stage
-// calls. Inlined at each stage (5 a ladder step, and the 3 of the doubling
-// of P1), a step was 6,624 SASS instructions; where the warps of an SM ran
-// different stages at once (their lanes' bits differ) they missed the
-// instruction cache, and a ladder with a scalar a lane took 2x the time of
-// one with a shared scalar. Called, the ladder is 2,616 instructions and
-// the two take the same time (an NVIDIA H100, PERF.md section 6). The
-// operands pass by value, in registers.
-__device__ __noinline__ Fe fe_mul_call(const Fe a, const Fe b, const FieldConsts F) {
-  return fe_mul(a, b, F);
 }
 
 // One product stage of N <= kGroup products: rank r < N writes a*b as row

@@ -216,21 +216,32 @@ __device__ __forceinline__ Fe fe_mul15(const Fe& t, const FieldConsts& F) {
   return fe_sub(d, t, F);
 }
 
+// The inlined Montgomery product as a functor: the default of the point
+// formulas below; csrc/ec_group.cuh adds the called one (MulCall).
+struct MulInline {
+  __device__ __forceinline__ Fe operator()(const Fe& a, const Fe& b, const FieldConsts& F) const {
+    return fe_mul(a, b, F);
+  }
+};
+
 // Complete homogeneous-projective addition for a = 0, b3 = 15
 // (Renes-Costello-Batina 2015, Algorithm 7), step for step the reference's
 // _ec_add_proj_core: identity (0:1:0) and doubling need no case analysis.
+// `Mul` computes every product (inlined by default).
+template <class Mul = MulInline>
 __device__ __forceinline__ void ec_add_proj(Fe& x3, Fe& y3, Fe& z3,
                                             const Fe& x1, const Fe& y1, const Fe& z1,
                                             const Fe& x2, const Fe& y2, const Fe& z2,
                                             const FieldConsts& F) {
-  Fe t0 = fe_mul(x1, x2, F);
-  Fe t1 = fe_mul(y1, y2, F);
-  Fe t2 = fe_mul(z1, z2, F);
-  Fe t3 = fe_mul(fe_add(x1, y1, F), fe_add(x2, y2, F), F);
+  const Mul mul;
+  Fe t0 = mul(x1, x2, F);
+  Fe t1 = mul(y1, y2, F);
+  Fe t2 = mul(z1, z2, F);
+  Fe t3 = mul(fe_add(x1, y1, F), fe_add(x2, y2, F), F);
   t3 = fe_sub(t3, fe_add(t0, t1, F), F);
-  Fe t4 = fe_mul(fe_add(y1, z1, F), fe_add(y2, z2, F), F);
+  Fe t4 = mul(fe_add(y1, z1, F), fe_add(y2, z2, F), F);
   t4 = fe_sub(t4, fe_add(t1, t2, F), F);
-  Fe xx = fe_mul(fe_add(x1, z1, F), fe_add(x2, z2, F), F);
+  Fe xx = mul(fe_add(x1, z1, F), fe_add(x2, z2, F), F);
   Fe yy = fe_sub(xx, fe_add(t0, t2, F), F);
   xx = fe_dbl(t0, F);
   t0 = fe_add(xx, t0, F);
@@ -238,10 +249,10 @@ __device__ __forceinline__ void ec_add_proj(Fe& x3, Fe& y3, Fe& z3,
   Fe zz = fe_add(t1, t2, F);
   t1 = fe_sub(t1, t2, F);
   yy = fe_mul15(yy, F);
-  x3 = fe_sub(fe_mul(t3, t1, F), fe_mul(t4, yy, F), F);
-  y3 = fe_add(fe_mul(yy, t0, F), fe_mul(t1, zz, F), F);
-  t0 = fe_mul(t0, t3, F);
-  z3 = fe_add(fe_mul(zz, t4, F), t0, F);
+  x3 = fe_sub(mul(t3, t1, F), mul(t4, yy, F), F);
+  y3 = fe_add(mul(yy, t0, F), mul(t1, zz, F), F);
+  t0 = mul(t0, t3, F);
+  z3 = fe_add(mul(zz, t4, F), t0, F);
 }
 
 }  // namespace taiga

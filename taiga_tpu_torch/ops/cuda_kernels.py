@@ -81,10 +81,13 @@ _ARGTYPES = {
     "ec_add_proj": {
         "taiga_ec_add_proj": [_VP] * 9 + [_I64, ctypes.c_int, _VP],
         "taiga_ec_add_proj_sel": [_VP] * 10 + [_I64, ctypes.c_int, _VP],
-        "taiga_ec_seg_round": [_VP] * 4 + [_I64, _I64] + [_VP] * 3 + [_I64, ctypes.c_int, _VP],
+        "taiga_ec_seg_rows": [_VP] * 4 + [_I64, ctypes.c_int] + [_VP] * 5
+                             + [_I64, ctypes.c_int, _VP],
         "taiga_ec_seg_tile": [_VP] * 4 + [ctypes.c_int, ctypes.c_int] + [_VP] * 3
                              + [_I64, ctypes.c_int, _VP],
         "taiga_ec_horner": [_VP] * 6 + [ctypes.c_int, _I64, ctypes.c_int, ctypes.c_int, _VP],
+        "taiga_ec_bucket_weights": [_VP] * 4 + [ctypes.c_int, _I64] + [_VP] * 3
+                                   + [ctypes.c_int, _VP],
     },
     "tape_eval": {
         "taiga_tape_eval": [_VP, _I32, _VP, _I32, _VP, _I64, _I32, _VP, _I64, ctypes.c_int,

@@ -11,6 +11,7 @@ warp's lanes read neighbouring words.
   K3 ec_add_proj_sel_lm sel ? P1 + P2 : P1             csrc/ec_add_proj.cu
      ec_seg_rounds_lm   K3 chained: segmented rounds   csrc/ec_add_proj.cu
      ec_horner_lm       K2 chained: a Horner evaluation  csrc/ec_add_proj.cu
+     ec_bucket_weights_lm  K2 chained: sum_j j B_j       csrc/ec_add_proj.cu
   K5 ec_fold_shared_lm  G_lo + [s] G_hi, one shared s  csrc/ec_fold_shared.cu
   K6 ec_add_lm          complete Jacobian add          csrc/ec_add_jac.cu
      ec_add_tree_lm     K6 chained: columns' halving trees  csrc/ec_add_jac.cu
@@ -47,8 +48,9 @@ _force_plain = False
 @contextlib.contextmanager
 def plain_versions():
     """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner,
-    ec_ladder, ec_double, ec_add_tree, and poseidon_kernel's permute_batch
-    and hash_n_batch) runs its plain version, on any device. Used to hold
+    ec_bucket_weights, ec_ladder, ec_double, ec_add_tree, and
+    poseidon_kernel's permute_batch and hash_n_batch) runs its plain
+    version, on any device. Used to hold
     the kernels' results against the plain path. The flag is module state:
     it covers every thread, the pipelined prover's worker included."""
     global _force_plain
@@ -131,6 +133,28 @@ def _ec_add_proj_core(x1, y1, z1, x2, y2, z2, field: str):
     t3, t4, y3 = sub([m3, m4, mx], [a01, a12, a02])
     # t0 = 3 t0, and 15 t2, 15 y3 as 16t - t (b3 = 3b = 15 for both Pasta
     # curves; the reference's _mul15: four doublings and a subtract)
+    d2, dy, t0 = add([t2, y3, d0], [t2, y3, t0])
+    for _ in range(3):
+        d2, dy = add([d2, dy], [d2, dy])
+    t2, y3 = sub([d2, dy], [t2, y3])
+    (z3,) = add([t1], [t2])
+    (t1,) = sub([t1], [t2])
+    p0, p1, p2, p3, p4, p5 = mm([t3, t4, y3, t1, t0, z3], [t1, y3, t0, z3, t3, t4])
+    (x3,) = sub([p0], [p1])
+    y3, z3 = add([p2, p5], [p3, p4])
+    return x3.contiguous(), y3.contiguous(), z3.contiguous()
+
+
+def _ec_dbl_proj_core(x, y, z, field: str):
+    """2 (x : y : z) by the RCB add's polynomials at P = Q, as the kernels'
+    doubling computes it (csrc/ec_group.cuh, ec_dbl_proj_group): x x, y y,
+    z z, x y, y z, x z, where the add's (x1 + y1)(x2 + y2) - (t0 + t1) is
+    2 x y (and likewise 2 y z, 2 x z), then the add's own chain and stage
+    B. The same field values as _ec_add_proj_core(P, P), so, every value
+    being canonical for canonical inputs, the same limbs."""
+    mm, add, sub = (_stacked(op, field) for op in (_mm_cios, _madd, _msub))
+    t0, t1, t2, m3, m4, m5 = mm([x, y, z, x, y, x], [x, y, z, y, z, z])
+    t3, t4, y3, d0 = add([m3, m4, m5, t0], [m3, m4, m5, t0])
     d2, dy, t0 = add([t2, y3, d0], [t2, y3, t0])
     for _ in range(3):
         d2, dy = add([d2, dy], [d2, dy])
@@ -272,26 +296,65 @@ def ec_add_proj_sel_plain(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
     return torch.where(m, x3, x1), torch.where(m, y3, y1), torch.where(m, z3, z1)
 
 
-def ec_seg_rounds_plain(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 0):
-    """Plain version of ec_seg_rounds: the segmented Hillis-Steele suffix
-    reduction along the last axis of points (16, ..., n) with int64 keys
-    (..., n), one K3 select-add a round over rolled copies: after round r,
-    lane i holds the sum of its run's elements in [i, i + 2^(r+1)). With
-    tile > 0 the lanes fall into tiles of `tile` and a tile's edges are run
-    edges too."""
-    n = x.shape[-1]
-    idx = torch.arange(n, device=x.device)
-    shape = x.shape
+def seg_offsets(keys, tile: int = 0):
+    """Each lane's offset from its run's first lane along the last axis of
+    keys (..., n): runs are maximal stretches of equal keys, and with
+    tile > 0 a tile's first lane also starts a run."""
+    n = keys.shape[-1]
+    idx = torch.arange(n, device=keys.device)
+    start = torch.ones(keys.shape, dtype=torch.bool, device=keys.device)
+    start[..., 1:] = keys[..., 1:] != keys[..., :-1]
+    if tile:
+        start |= idx % tile == 0
+    return idx - torch.cummax(torch.where(start, idx, 0), dim=-1).values
+
+
+def seg_adds(keys, rounds: int, tile: int = 0):
+    """The lanes each round of ec_seg_rounds adds at, flattened: a list of
+    int64 index tensors, round r's lanes i (offset a multiple of 2^(r+1))
+    whose lane i + 2^r is in i's run. Ends at the first round with none."""
+    n = keys.shape[-1]
+    off = seg_offsets(keys, tile).reshape(-1)
+    col = torch.arange(n, device=keys.device).repeat(off.numel() // max(n, 1))
+    out = []
     for r in range(rounds):
         s = 1 << r
-        same = (idx + s < n) & (keys == torch.roll(keys, -s, dims=-1))
+        cand = (off % (2 * s) == 0) & (col + s < n)
         if tile:
-            same &= idx % tile + s < tile
-        nxt = (torch.roll(v, -s, dims=-1).reshape(16, -1) for v in (x, y, z))
-        out = ec_add_proj_sel_plain(*(v.reshape(16, -1) for v in (x, y, z)), *nxt,
-                                    same.reshape(1, -1), field)
-        x, y, z = (o.reshape(shape) for o in out)
-    return x, y, z
+            cand &= col % tile + s < tile
+        i = cand.nonzero()[:, 0]
+        i = i[off[i + s] == off[i] + s]
+        if i.numel() == 0:
+            break
+        out.append(i)
+    return out
+
+
+def ec_seg_rounds_plain(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 0):
+    """Plain version of ec_seg_rounds, over points (16, ..., n) and int64
+    keys (..., n) sorted along the last axis (a row). Runs are maximal
+    stretches of equal keys; with tile > 0 a tile's first lane also starts
+    a run. Round r < rounds adds only at the offsets divisible by 2^(r+1)
+    from a run's first lane: lane i <- P_i + P_(i + 2^r) where lane i + 2^r
+    is in i's run (K2's add, on those lanes alone).
+
+    The contract: a lane is *defined* when its offset from its run's first
+    lane is a multiple of 2^rounds. A defined lane holds what the
+    reference's Hillis-Steele rounds (taiga_tpu/ops/msm.py::_seg_rounds,
+    the tile's edges as run edges where tile > 0) give it: the aligned
+    binary tree ((P_i + P_i+1) + (P_i+2 + P_i+3)) + ... over
+    [i, i + 2^rounds) cut at the run's end, by the reference's operations
+    in its order, so with its limbs. Every other lane keeps its input."""
+    shape = x.shape
+    src = [v.reshape(16, -1) for v in (x, y, z)]
+    pts = [v.clone() for v in src]
+    for r, i in enumerate(seg_adds(keys, rounds, tile)):
+        out = ec_add_proj_plain(*(v[:, i] for v in pts), *(v[:, i + (1 << r)] for v in pts),
+                                field)
+        for v, o in zip(pts, out):
+            v[:, i] = o
+    defined = (seg_offsets(keys, tile).reshape(-1) % (1 << rounds)) == 0
+    return tuple(torch.where(defined, p, v).reshape(shape) for p, v in zip(pts, src))
 
 
 def ec_add_plain(x1, y1, z1, x2, y2, z2, field: str = "fq"):
@@ -393,6 +456,34 @@ def ec_horner_plain(wx, wy, wz, doublings: int, field: str = "fq"):
     return acc
 
 
+BUCKET_BITS_MAX = 8  # the widest window ec_bucket_weights takes (csrc/ec_add_proj.cu)
+
+
+def ec_bucket_weights_plain(bx, by, bz, c: int, field: str = "fq"):
+    """Plain version of ec_bucket_weights: the reference's weighting of an
+    MSM window's buckets (taiga_tpu/ops/msm.py:140-173) over L columns of
+    2^c bucket sums (16, L 2^c), column l's bucket j at lane l 2^c + j.
+    Each bit t of j masks the buckets (B_j where the bit is set, else the
+    identity (0 : 1 : 0)); each (bit, column) row reduces by the aligned
+    binary tree, level by level (lane 2k + lane 2k + 1), which is lane 0
+    of the reference's roll-add tree; then the Horner over the bits, the
+    most significant first (ec_horner_plain, one doubling a bit). Returns
+    3 x (16, L) sum_j j B_j."""
+    n = 1 << c
+    Lc = bx.shape[-1] // n
+    dev = bx.device
+    j = torch.arange(n, device=dev)
+    keep = (((j[None, :] >> torch.arange(c, device=dev)[:, None]) & 1) > 0)[None, :, None, :]
+    ident = (0, _spec(field).one_col(dev).view(NLIMBS, 1, 1, 1), 0)
+    t = [torch.where(keep, v.reshape(NLIMBS, 1, Lc, n), e) for v, e in zip((bx, by, bz), ident)]
+    while t[0].shape[-1] > 1:
+        shape = t[0][..., 0::2].shape
+        out = ec_add_proj_plain(*(v[..., 0::2].reshape(NLIMBS, -1) for v in t),
+                                *(v[..., 1::2].reshape(NLIMBS, -1) for v in t), field)
+        t = [o.reshape(shape) for o in out]
+    return ec_horner_plain(*(v[..., 0].contiguous() for v in t), 1, field)
+
+
 FOLD_STEPS = 255  # bits of the shared scalar that the fold reads
 
 
@@ -478,15 +569,24 @@ def ec_add_proj_sel_lm(x1, y1, z1, x2, y2, z2, sel, field: str = "fq"):
 
 
 SEG_TILE_MAX = 128  # the widest tile of ec_seg_rounds: one block of the kernel
+SEG_ROUNDS_MAX = 62  # rounds whose 2^(r + 1) an int64 offset holds
 
 
 def ec_seg_rounds_lm(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 0):
-    """K3 chained: `rounds` rounds of ec_seg_rounds_plain over points
-    (16, ..., n) int32 and keys (..., n) int64, every add K2's RCB add in
-    the plain version's order. tile == 0: one launch a round, computing its
-    select from the keys in the kernel. tile > 0 (a power of two, at most
-    SEG_TILE_MAX, with 2^rounds <= tile and n a multiple of it): one launch
-    for every round, each tile in shared memory. Returns 3 x (16, ..., n)."""
+    """K3 chained: `rounds` rounds of the segmented reduction of
+    ec_seg_rounds_plain over points (16, ..., n) int32 and keys (..., n)
+    int64, sorted along each row, in one launch: tile == 0, rows of any
+    length (a cooperative launch, a grid-wide barrier between rounds, the
+    rounds ending at the first with no add); tile > 0 (a power of two, at
+    most SEG_TILE_MAX, with 2^rounds <= tile and n a multiple of it), each
+    block's tiles in shared memory. Returns 3 x (16, ..., n).
+
+    The contract (as ec_seg_rounds_plain's): a lane is *defined* when its
+    offset from its run's first lane (a tile's first lane starts a run) is
+    a multiple of 2^rounds. A defined lane holds what the reference's
+    Hillis-Steele rounds (taiga_tpu/ops/msm.py::_seg_rounds) give it, limb
+    for limb; every other lane keeps its input point. Callers read defined
+    lanes only (ops/msm.py)."""
     shape, n = x.shape, x.shape[-1]
     for nm, t in zip(("x", "y", "z"), (x, y, z)):
         check_lm(nm, t, *shape)
@@ -495,8 +595,8 @@ def ec_seg_rounds_lm(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 
     if keys.dtype != torch.int64 or keys.shape != shape[1:] or not keys.is_contiguous():
         raise ValueError(f"keys: {keys.dtype} {tuple(keys.shape)}, expected contiguous int64 "
                          f"{tuple(shape[1:])}")
-    if rounds < 0:
-        raise ValueError(f"ec_seg_rounds: rounds = {rounds}")
+    if not 0 <= rounds <= SEG_ROUNDS_MAX:
+        raise ValueError(f"ec_seg_rounds: rounds = {rounds}, expected 0 .. {SEG_ROUNDS_MAX}")
     if tile and (tile < 0 or tile & (tile - 1) or tile > SEG_TILE_MAX or (1 << rounds) > tile
                  or n % tile):
         raise ValueError(f"ec_seg_rounds: tile {tile} must be a power of two <= {SEG_TILE_MAX} "
@@ -505,21 +605,18 @@ def ec_seg_rounds_lm(x, y, z, keys, rounds: int, field: str = "fq", tile: int = 
         return ec_seg_rounds_plain(x, y, z, keys, rounds, field, tile)
     B = x.numel() // NLIMBS
     so, fid, stream = CK.lib("ec_add_proj"), CK.FIELD_IDS[field], CK.stream_ptr(x.device)
+    outs = tuple(torch.empty_like(x) for _ in range(3))
     if tile:
-        outs = tuple(torch.empty_like(x) for _ in range(3))
         CK.check(so.taiga_ec_seg_tile(*map(_ptr, (x, y, z, keys)), tile, rounds,
                                       *map(_ptr, outs), B, fid, stream), "ec_seg_tile")
-        ec_seg_rounds_lm.launches += 1
-        return outs
-    pts, bufs = (x, y, z), [tuple(torch.empty_like(x) for _ in range(3))
-                            for _ in range(min(rounds, 2))]
-    for r in range(rounds):
-        out = bufs[r % 2]
-        CK.check(so.taiga_ec_seg_round(*map(_ptr, pts + (keys,)), 1 << r, n, *map(_ptr, out),
-                                       B, fid, stream), "ec_seg_round")
-        ec_seg_rounds_lm.launches += 1
-        pts = out
-    return pts
+    else:
+        off = torch.empty(B, dtype=torch.int32, device=x.device)
+        counts = torch.empty(max(rounds, 1), dtype=torch.int32, device=x.device)
+        CK.check(so.taiga_ec_seg_rows(*map(_ptr, (x, y, z, keys)), n, rounds,
+                                      *map(_ptr, outs + (off, counts)), B, fid, stream),
+                 "ec_seg_rows")
+    ec_seg_rounds_lm.launches += 1
+    return outs
 
 
 def ec_horner_lm(wx, wy, wz, doublings: int, field: str = "fq"):
@@ -541,6 +638,34 @@ def ec_horner_lm(wx, wy, wz, doublings: int, field: str = "fq"):
     CK.check(so.taiga_ec_horner(*map(_ptr, (wx, wy, wz) + outs), W, Lc, doublings,
                                 CK.FIELD_IDS[field], CK.stream_ptr(wx.device)), "ec_horner")
     ec_horner_lm.launches += 1
+    return outs
+
+
+def ec_bucket_weights_lm(bx, by, bz, c: int, field: str = "fq"):
+    """K2 chained: an MSM window's bucket weighting sum_j j B_j for each of
+    L columns of 2^c bucket sums (16, L 2^c) limb-major projective (column
+    l's bucket j at lane l 2^c + j; 1 <= c <= BUCKET_BITS_MAX), as
+    ec_bucket_weights_plain computes it, every add K2's RCB add in its
+    order: each (bit, column) row's aligned tree, then the Horner over the
+    bits, in one launch (a cluster of c blocks a column). Returns
+    3 x (16, L)."""
+    if not 1 <= c <= BUCKET_BITS_MAX:
+        raise ValueError(f"ec_bucket_weights: c = {c}, expected 1 .. {BUCKET_BITS_MAX}")
+    M = bx.shape[-1]
+    for nm, t in zip(("bx", "by", "bz"), (bx, by, bz)):
+        check_lm(nm, t, NLIMBS, M)
+    Lc = M >> c
+    if Lc < 1 or Lc << c != M:
+        raise ValueError(f"ec_bucket_weights: {M} lanes are not columns of 2^{c} buckets")
+    if not use_kernel(bx, by, bz):
+        return ec_bucket_weights_plain(bx, by, bz, c, field)
+    outs = tuple(torch.empty((NLIMBS, Lc), dtype=bx.dtype, device=bx.device) for _ in range(3))
+    one = _spec(field).one_col(bx.device)
+    so = CK.lib("ec_add_proj")
+    CK.check(so.taiga_ec_bucket_weights(*map(_ptr, (bx, by, bz, one)), c, Lc, *map(_ptr, outs),
+                                        CK.FIELD_IDS[field], CK.stream_ptr(bx.device)),
+             "ec_bucket_weights")
+    ec_bucket_weights_lm.launches += 1
     return outs
 
 
@@ -683,6 +808,7 @@ ec_add_proj_lm.launches = 0
 ec_add_proj_sel_lm.launches = 0
 ec_seg_rounds_lm.launches = 0
 ec_horner_lm.launches = 0
+ec_bucket_weights_lm.launches = 0
 ec_add_lm.launches = 0
 ec_add_tree_lm.launches = 0
 ec_add_select_lm.launches = 0

@@ -9,6 +9,15 @@ reference's device path at every size: per c-bit window, sort the digits
 buckets by their digit (K2), then combine the windows by Horner (K2). The
 windows are independent, so they are reduced together, each on its own lanes.
 
+The segmented reductions (`ec_seg_rounds_lm`, one launch a call) compute
+only the lanes whose offset from their run's first lane is a multiple of
+2^rounds (its contract; every other lane keeps its input point), and every
+caller here reads only such lanes: `_compact` the stride-CHUNK partials of
+its first call (offsets that are multiples of 2^6) and the run starts of
+its second, `_blocked_partials` the in-block run starts of phase B (a
+tile's first lane starts a run) and phase C's run starts, `_window_reduce`
+its run starts; `_bucket_sums` reads run starts only.
+
 The fixed-base path is the one the prover commits every column with: one
 fixed point set, so the window structure is baked into data: a shifted table
 T[w][i] = [2^(c*w)] G_i, built once per domain, turns every commitment into a
@@ -17,15 +26,15 @@ SINGLE bucket accumulation over W*N lanes:
   * digits of all columns are keyed col*2^c + digit and sorted (a total
     order: key and lane index packed into one int64);
   * the table rows are gathered in sorted order and reduced per run by
-    segmented Hillis-Steele rounds of K3 (`ec_seg_rounds_lm`, one launch a
-    round, the select computed in the kernel from the keys), or — for
-    large windows — by a blocked tree of K2 (ec_add_proj,
-    `_blocked_partials`) plus a fix-up of the blocks that straddle runs;
+    the segmented rounds of K3 (`ec_seg_rounds_lm`), or — for large
+    windows — by a blocked tree of K2 (ec_add_proj, `_blocked_partials`)
+    plus a fix-up of the blocks that straddle runs;
   * the 2^c bucket sums of each column are weighted by their digit through
-    the digit's bit decomposition (K2 tree + a Horner over the bits).
+    the digit's bit decomposition (a K2 tree a bit and a Horner over the
+    bits: one `ec_bucket_weights_lm` launch).
 
-Each Horner (over the bits, and the general MSM's over its windows) is one
-chained launch (ec_horner_lm), not one K2 launch per add.
+The general MSM's Horner over its windows is one chained launch
+(ec_horner_lm), not one K2 launch per add.
 
 Points inside are limb-major projective (16, B) int32 coordinates with the
 identity (0 : 1 : 0). The reference stores a non-finite input as (0, 0) after
@@ -98,13 +107,6 @@ def _lanes(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(16, -1).contiguous()
 
 
-def _add(p, q, field: str):
-    """K2 over two point triples of one shape (16, ..., L)."""
-    shape = p[0].shape
-    out = FK.ec_add_proj_lm(*(_lanes(v) for v in p + q), field=field)
-    return tuple(o.view(shape) for o in out)
-
-
 def _cols(v, lo: int, hi: int):
     return v[:, lo:hi].contiguous()
 
@@ -163,6 +165,8 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
     # every run of the gathered blocks lies in one block: all rounds in one launch
     gx, gy, gz = FK.ec_seg_rounds_lm(gx, gy, gz, comp2, _BLOCK.bit_length() - 1, field,
                                      tile=_BLOCK)
+    # read only the in-block run starts: offset 0 in a run (a tile's first
+    # lane starts one), defined lanes of ec_seg_rounds
     gi = torch.arange(glanes, device=dev)
     prev = torch.cat([comp2[:1] ^ 1, comp2[:-1]])
     is_start = ((gi % _BLOCK == 0) | (comp2 != prev)) & lane_valid
@@ -171,15 +175,20 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
     spos = _nonzero_sized(is_start, ecap, glanes)
     svalid = spos < glanes
     sposc = torch.clamp(spos, 0, glanes - 1)
+    # a key of its own for each lane that holds no partial (above every
+    # bucket's key, ascending in lane order): single-lane runs, so the
+    # merge's rounds end with its longest bucket run, and the lanes sort
+    # as under one shared sentinel
     sent = ncols * nbuckets
-    mkey = torch.where(svalid, gkey.index_select(0, sposc), sent)
+    ekey_sent = sent + torch.arange(nb + ecap, dtype=dcomp.dtype, device=dev)
+    mkey = torch.where(svalid, gkey.index_select(0, sposc), ekey_sent[nb:])
     mx = gx.index_select(1, sposc)
     my = gy.index_select(1, sposc)
     mz = gz.index_select(1, sposc)
     mx, my, mz = _mask_identity(mx, my, mz, svalid, field)
 
     # --- C: merge uniform block sums + mixed-run partials ----------------
-    ukey = torch.where(mixed, sent, bk_lo)
+    ukey = torch.where(mixed, ekey_sent[:nb], bk_lo)
     ux, uy, uz = _mask_identity(ax, ay, az, ~mixed, field)
     ekeys = torch.cat([ukey, mkey])
     en = nb + ecap
@@ -188,6 +197,7 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
     ex = torch.cat([ux, mx], dim=1).index_select(1, order)
     ey = torch.cat([uy, my], dim=1).index_select(1, order)
     ez = torch.cat([uz, mz], dim=1).index_select(1, order)
+    # _bucket_sums reads each run's first lane: defined in ec_seg_rounds
     ex, ey, ez = FK.ec_seg_rounds_lm(ex, ey, ez, ekeys, max(1, (en - 1).bit_length()), field)
     return ex, ey, ez, ekeys, en
 
@@ -195,9 +205,13 @@ def _blocked_partials(x, y, z, dcomp, field: str, ncols: int, nbuckets: int,
 def _compact(x, y, z, d, total: int, size: int, sentinel: int, field: str):
     """Reduce the sorted runs of points (16, ..., total) with keys
     (..., total) to partials at stride CHUNK from each run's start (CHUNK
-    rounds), gather those to `size` lanes (sentinel keys and identities
-    beyond them) and finish the runs there. Returns (x, y, z, keys)."""
+    rounds), gather those to `size` lanes (identities beyond them, keyed
+    sentinel, sentinel + 1, ...: single-lane runs, so the second call's
+    rounds end with the longest run of partials) and finish the runs
+    there. Returns (x, y, z, keys)."""
     dev = x.device
+    # gathered below: the lanes at offsets from their run's start that are
+    # multiples of CHUNK = 2^rounds, the defined lanes of ec_seg_rounds
     x, y, z = FK.ec_seg_rounds_lm(x, y, z, d, _CHUNK.bit_length() - 1, field)
     idx = torch.arange(total, device=dev)
     first = torch.ones(tuple(d.shape[:-1]) + (1,), dtype=torch.bool, device=dev)
@@ -208,8 +222,10 @@ def _compact(x, y, z, d, total: int, size: int, sentinel: int, field: str):
     pos = _nonzero_sized(mask, size, total)
     valid = pos < total
     posc = torch.clamp(pos, 0, total - 1)
-    cd = torch.where(valid, _take(d, posc), sentinel)
+    cd = torch.where(valid, _take(d, posc),
+                     sentinel + torch.arange(size, dtype=d.dtype, device=dev))
     x, y, z = _mask_identity(_take(x, posc), _take(y, posc), _take(z, posc), valid, field)
+    # _bucket_sums reads the run starts: defined lanes
     x, y, z = FK.ec_seg_rounds_lm(x, y, z, cd, size.bit_length() - 1, field)
     return x, y, z, cd
 
@@ -217,9 +233,9 @@ def _compact(x, y, z, d, total: int, size: int, sentinel: int, field: str):
 def _bucket_sums(x, y, z, cd, c: int, ncols: int, size: int, field: str):
     """From reduced runs (each run's first lane holds its bucket's sum; keys
     col*2^c + digit, sorted, over `size` lanes) to each column's window sum
-    sum_j j*B_j: buckets extracted by searchsorted, weighted through the bits
-    of j (a K2 tree over (c, ncols, 2^c) lanes, then one chained Horner
-    over the bits).
+    sum_j j*B_j: buckets extracted by searchsorted (run starts only), then
+    weighted through the bits of j in one ec_bucket_weights_lm launch over
+    the (batch x ncols) columns.
     Returns 3 x (16, ..., ncols) projective points."""
     dev = x.device
     batch = tuple(cd.shape[:-1])
@@ -228,32 +244,8 @@ def _bucket_sums(x, y, z, cd, c: int, ncols: int, size: int, field: str):
     pos = torch.searchsorted(cd, targets.expand(batch + targets.shape).contiguous())
     pos = torch.clamp(pos, 0, size - 1)
     present = _take(cd, pos) == targets
-    bx, by, bz = _mask_identity(_take(x, pos), _take(y, pos), _take(z, pos), present, field)
-    # (16, ..., ncols, nbuckets) -> weighted sums via bit decomposition, batched
-    digit_vals = targets.reshape(ncols, nbuckets) & (nbuckets - 1)
-    bits = torch.arange(c, device=dev)
-    bit_masks = ((digit_vals[None, :, :] >> bits[:, None, None]) & 1) > 0
-    # lanes: (16, ..., c, ncols, nbuckets)
-    lanes = c * ncols * nbuckets
-    shape4 = (16,) + batch + (c, ncols, nbuckets)
-    tx, ty, tz = (v.reshape((16,) + batch + (1, ncols, nbuckets)).expand(shape4)
-                  .reshape((16,) + batch + (lanes,)) for v in (bx, by, bz))
-    keep = bit_masks.reshape(lanes).expand(batch + (lanes,))
-    t = _mask_identity(tx, ty, tz, keep, field)
-
-    sh3 = (16,) + batch + (c * ncols, nbuckets)
-    for r in range((nbuckets - 1).bit_length()):
-        s = 1 << r
-        nxt = tuple(torch.roll(v.reshape(sh3), -s, dims=-1).reshape(v.shape) for v in t)
-        t = _add(t, nxt, field)
-
-    # lane 0 of each (bit, col) row: S_{t,col}; Horner over the bits, one
-    # chained launch over the (batch x ncols) lanes: terms (16, c, lanes)
-    sel = ((torch.arange(c, device=dev)[:, None] * ncols
-            + torch.arange(ncols, device=dev)[None, :]) * nbuckets).reshape(-1)
-    s_t = (v.index_select(-1, sel).reshape((16,) + batch + (c, ncols)) for v in t)
-    terms = tuple(v.movedim(-2, 1).reshape(16, c, -1).contiguous() for v in s_t)
-    acc = FK.ec_horner_lm(*terms, 1, field)
+    buckets = _mask_identity(_take(x, pos), _take(y, pos), _take(z, pos), present, field)
+    acc = FK.ec_bucket_weights_lm(*(_lanes(v) for v in buckets), c, field)
     return tuple(v.view((16,) + batch + (ncols,)) for v in acc)
 
 

@@ -387,3 +387,109 @@ def test_ec_seg_rounds_wrapper_rejects_bad_inputs():
         r = torch.zeros((16, 192), dtype=torch.int32)
         TFK.ec_seg_rounds_lm(r, r, r, torch.zeros(192, dtype=torch.int64), 1, tile=128)
     assert TFK.ec_seg_rounds_lm.launches == 0  # a CPU call never counts as a launch
+
+
+@pytest.mark.parametrize("field", ["fp", "fq"])
+def test_ec_dbl_proj_plain_equals_k2_doubling(field):
+    """The kernels' P = Q form of the RCB add (ff_kernels._ec_dbl_proj_core,
+    mirroring csrc/ec_group.cuh's ec_dbl_proj_group) equals K2's plain
+    version ec_add_proj_plain(P, P) limb for limb: 256 seeded curve points
+    scaled by a random z, the identity (0 : 1 : 0), (0 : 0 : 0), and 64
+    random canonical triples off the curve (the two are the same
+    polynomials). No Pasta point has y = 0: such a point has order 2, and
+    both curves' orders are prime."""
+    rng = np.random.default_rng(90 if field == "fp" else 91)
+    curve, spec = CURVES[field], TL.FIELDS[field]
+    p = spec.modulus
+    g = curve.generator()
+    cols = [[], [], []]
+    for _ in range(256):
+        pt = g * int(rng.integers(1, 1 << 62))
+        lam = int(rng.integers(1, 1 << 62))
+        for c, v in enumerate((pt.x.v * lam % p, pt.y.v * lam % p, lam)):
+            cols[c].append(v)
+    for c, v in enumerate((0, 1, 0)):  # the identity, as coordinates before Montgomery form
+        cols[c].append(v)
+    for c in range(3):
+        cols[c].append(0)
+    lm = [spec.array_to_mont(v).T.astype(np.int64) for v in cols]
+    off = rng.integers(0, 1 << 16, size=(3, 16, 64), dtype=np.int64)
+    off[:, 15] &= 0x3FFF
+    pts = [torch.as_tensor(np.concatenate([a, o], 1).astype(np.int32)) for a, o in zip(lm, off)]
+    assert torch.equal(pts[1][:, 256], torch.as_tensor(spec.one_mont.astype(np.int32)))
+    got = TFK._ec_dbl_proj_core(*pts, field)
+    want = TFK.ec_add_proj_plain(*pts, *pts, field=field)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+    # as group elements: 2P on the sampled curve lanes, the identity stays
+    doubled = _to_affine(field, *(v[:, :257].numpy().astype(np.int64) for v in got))
+    assert doubled[:4] == [pt + pt for pt in _to_affine(field, *(v[:, :4].numpy()
+                                                                 .astype(np.int64)
+                                                                 for v in pts))]
+    assert doubled[256].is_identity()
+
+
+def _bucket_loop(bx, by, bz, c, field):
+    """The bucket weighting ec_bucket_weights replaced in ops/msm.py's
+    _bucket_sums: buckets (16, L 2^c) masked by each bit of the digit,
+    the K2 roll-add tree over all 2^c lanes of every (bit, column) row,
+    then ec_horner_plain over lane 0 of each row."""
+    n = 1 << c
+    Lc = bx.shape[1] // n
+    one = TL.FIELDS[field].one_col("cpu")
+    bits = torch.arange(c)
+    keep = (((torch.arange(n)[None, :] >> bits[:, None]) & 1) > 0)  # (c, n)
+    k = keep[:, None, :].expand(c, Lc, n).reshape(-1)
+    t = [v.reshape(16, 1, Lc, n).expand(16, c, Lc, n).reshape(16, -1) for v in (bx, by, bz)]
+    t = [torch.where(k, t[0], 0), torch.where(k, t[1], one), torch.where(k, t[2], 0)]
+    sh3 = (16, c * Lc, n)
+    for r in range(c):
+        nxt = [torch.roll(v.reshape(sh3), -(1 << r), dims=-1).reshape(16, -1) for v in t]
+        t = list(TFK.ec_add_proj_plain(*t, *nxt, field=field))
+    sel = torch.arange(c * Lc) * n
+    terms = [v.index_select(1, sel).reshape(16, c, Lc).contiguous() for v in t]
+    return TFK.ec_horner_plain(*terms, 1, field)
+
+
+@pytest.mark.parametrize("c", [2, 4, 8])
+@pytest.mark.parametrize("Lc", [1, 3, 8])
+def test_ec_bucket_weights_plain_equals_the_old_loop(c, Lc):
+    """ec_bucket_weights_plain (each bit row's aligned tree, then the Horner
+    over the bits) against the K2 roll-add tree and Horner it replaced in
+    _bucket_sums, limb for limb, with empty buckets (the identity, as
+    _bucket_sums masks a bucket no digit hit) and bucket 0 among them; and
+    as group elements, sum_j j B_j, on the first column."""
+    field = "fq" if (c + Lc) % 2 else "fp"
+    rng = np.random.default_rng(100 + 10 * c + Lc)
+    spec = TL.FIELDS[field]
+    n = 1 << c
+    p1, _ = _points(rng, field)  # 64 curve points: lanes drawn from them
+    idx = rng.integers(3, B, size=Lc * n)
+    pts = [v[:, idx].copy() for v in p1]
+    empty = rng.random(Lc * n) < 0.25
+    empty[::n] = True  # bucket 0: no weight, always empty in the MSMs
+    for c_, v in enumerate((TL.int_to_limbs(0), spec.one_mont, TL.int_to_limbs(0))):
+        pts[c_][:, empty] = np.asarray(v)[:, None]
+    t = [torch.as_tensor(np.ascontiguousarray(v, dtype=np.int32)) for v in pts]
+    got = TFK.ec_bucket_weights_lm(*t, c, field)
+    want = _bucket_loop(*t, c, field)
+    for g, w in zip(got, want):
+        assert g.shape == (16, Lc) and torch.equal(g, w)
+    col = _to_affine(field, *(v[:, :n] for v in pts))
+    weighted = sum((pt * j for j, pt in enumerate(col)), CURVES[field].identity())
+    assert _to_affine(field, *(g[:, :1].numpy().astype(np.int64) for g in got)) == [weighted]
+
+
+def test_ec_bucket_weights_wrapper_rejects_bad_inputs():
+    t = torch.zeros((16, 3 * 16), dtype=torch.int32)
+    TFK.ec_bucket_weights_lm(t, t, t, 4)  # 3 columns of 16 buckets
+    for c in (0, 9):
+        with pytest.raises(ValueError, match="c ="):
+            TFK.ec_bucket_weights_lm(t, t, t, c)
+    with pytest.raises(ValueError, match="columns"):  # 48 lanes are not columns of 32
+        TFK.ec_bucket_weights_lm(t, t, t, 5)
+    with pytest.raises(TypeError):
+        TFK.ec_bucket_weights_lm(t.long(), t, t, 4)
+    with pytest.raises(ValueError):  # shapes differ
+        TFK.ec_bucket_weights_lm(t, t, t[:, :32].contiguous(), 4)
+    assert TFK.ec_bucket_weights_lm.launches == 0  # a CPU call never counts as a launch

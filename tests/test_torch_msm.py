@@ -152,29 +152,144 @@ def _seg_inputs(field, seed):
     return pts, keys
 
 
+def _defined(keys, rounds, tile=0):
+    """The lanes ec_seg_rounds defines: offset from the run's first lane a
+    multiple of 2^rounds (a tile's first lane starts a run)."""
+    return (TFK.seg_offsets(torch.as_tensor(keys), tile) % (1 << rounds) == 0).numpy()
+
+
+def _j_seg_rounds(pts, keys, keys_tiled, field):
+    """The JAX package's _seg_rounds over the keys and, in one call beside
+    them on lanes of their own (keys shifted above), over the tiled keys."""
+    both = np.concatenate([keys, keys_tiled + keys.max() + 1])
+    with jax.disable_jit():
+        out = JM._seg_rounds(*(jnp.asarray(np.concatenate([v, v], -1).astype(np.uint32))
+                               for v in pts),
+                             jnp.asarray(both.astype(np.int32)), 2 * SEG_N, SEG_ROUNDS, field)
+    out = [np.asarray(w).astype(np.int64) for w in out]
+    return [w[:, :SEG_N] for w in out], [w[:, SEG_N:] for w in out]
+
+
 @pytest.mark.parametrize("field", ["fq", "fp"])
 def test_seg_rounds_plain_match_reference(field):
     """ec_seg_rounds_plain against the JAX package's _seg_rounds (its
-    non-Pallas path, eagerly): one launch a round everywhere; the tile form
-    where no run crosses a tile (lanes 0-255), where the two forms agree."""
+    non-Pallas path, eagerly), on every lane of both forms: a defined lane
+    (offset from its run's first lane a multiple of 2^7) equals the
+    reference; every other lane keeps its input. The tile form's reference
+    is _seg_rounds over the keys cut at every tile edge."""
     pts, keys = _seg_inputs(field, 70 if field == "fq" else 71)
-    with jax.disable_jit():
-        want = JM._seg_rounds(*(jnp.asarray(v.astype(np.uint32)) for v in pts),
-                              jnp.asarray(keys.astype(np.int32)), SEG_N, SEG_ROUNDS, field)
-    want = [np.asarray(w).astype(np.int64) for w in want]
+    tiles = np.arange(SEG_N) // SEG_TILE
+    want, want_tiled = _j_seg_rounds(pts, keys, keys + tiles * (1 << 12), field)
     t = [torch.as_tensor(v.astype(np.int32)) for v in pts]
     kt = torch.as_tensor(keys)
     rounds = TFK.ec_seg_rounds_plain(*t, kt, SEG_ROUNDS, field)
     tiled = TFK.ec_seg_rounds_plain(*t, kt, SEG_ROUNDS, field, tile=SEG_TILE)
-    for r, tl, w in zip(rounds, tiled, want):
-        np.testing.assert_array_equal(r.numpy(), w)
-        np.testing.assert_array_equal(tl.numpy()[:, :256], w[:, :256])
+    for got, ref, tile in ((rounds, want, 0), (tiled, want_tiled, SEG_TILE)):
+        d = _defined(keys, SEG_ROUNDS, tile)
+        assert d.any() and not d.all()
+        for g, w, p in zip(got, ref, pts):
+            np.testing.assert_array_equal(g.numpy()[:, d], w[:, d])
+            np.testing.assert_array_equal(g.numpy()[:, ~d], p[:, ~d])
     # the crossing run at lane 384 is cut by the tile edge in the tile form
     assert not np.array_equal(tiled[0].numpy()[:, 256:], want[0][:, 256:])
-    # single-lane runs and lanes past their run's end keep their point
+    # single-lane runs keep their point
     for lane in (0, 127, 128, 300, 301):
         for r, p in zip(rounds, t):
             np.testing.assert_array_equal(r[:, lane].numpy(), p[:, lane].numpy())
+
+
+def _host_rcb(field):
+    """K2's RCB add on host ints (Montgomery form, canonical): the
+    oracle's own arithmetic, independent of the limb code."""
+    spec = TL.FIELDS[field]
+    p = spec.modulus
+    rinv = pow(1 << 256, -1, p)
+
+    def mm(a, b):
+        return a * b * rinv % p
+
+    def add(P, Q):
+        (x1, y1, z1), (x2, y2, z2) = P, Q
+        t0, t1, t2 = mm(x1, x2), mm(y1, y2), mm(z1, z2)
+        t3 = (mm((x1 + y1) % p, (x2 + y2) % p) - t0 - t1) % p
+        t4 = (mm((y1 + z1) % p, (y2 + z2) % p) - t1 - t2) % p
+        yy = (mm((x1 + z1) % p, (x2 + z2) % p) - t0 - t2) % p
+        t0, t2 = 3 * t0 % p, 15 * t2 % p
+        zz, t1, yy = (t1 + t2) % p, (t1 - t2) % p, 15 * yy % p
+        return ((mm(t3, t1) - mm(t4, yy)) % p, (mm(yy, t0) + mm(t1, zz)) % p,
+                (mm(zz, t4) + mm(t0, t3)) % p)
+
+    return add
+
+
+def _seg_oracle(pts, keys, rounds, tile, field):
+    """Each defined lane's aligned tree, step by step on host ints: the sum
+    at lane i after r rounds is its sum after r - 1 rounds, plus lane
+    i + 2^(r-1)'s where that lane is in i's run. Returns {(row, lane):
+    (x, y, z)}."""
+    add = _host_rcb(field)
+    out = {}
+    for row, k in enumerate(keys):
+        n = len(k)
+        end = np.empty(n, np.int64)  # one past each lane's run
+        for i in range(n - 1, -1, -1):
+            cut = i + 1 == n or k[i + 1] != k[i] or (tile and (i + 1) % tile == 0)
+            end[i] = i + 1 if cut else end[i + 1]
+
+        def tree(i, r, row=row, end=end):
+            if r == 0:
+                return tuple(sum(int(pts[c, j, row, i]) << (16 * j) for j in range(16))
+                             for c in range(3))
+            acc = tree(i, r - 1)
+            j = i + (1 << (r - 1))
+            return add(acc, tree(j, r - 1)) if j < end[i] else acc
+
+        for i in np.nonzero(_defined(k[None], rounds, tile)[0])[0]:
+            out[(row, int(i))] = tree(int(i), rounds)
+    return out
+
+
+SEG_ORACLE_N = 256
+
+
+def _oracle_inputs(seed):
+    """Points (3, 16, 2, 256): row 0 with sorted runs of 1-40 lanes that
+    cross the 128-lane tile edges, single-lane runs among them; row 1 one
+    run as long as the row."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(0, 1 << 16, size=(3, 16, 2, SEG_ORACLE_N), dtype=np.int64)
+    pts[:, 15] &= 0x3FFF
+    lens = []
+    while sum(lens) < SEG_ORACLE_N:
+        lens.append(int(rng.choice([1, 1, 2, 3, 7, 17, 40])))
+    keys = np.zeros((2, SEG_ORACLE_N), np.int64)
+    keys[0] = np.repeat(np.arange(len(lens)), lens)[:SEG_ORACLE_N]
+    keys[0, 120:140] = keys[0, 120]  # a run over the tile edge at lane 128
+    keys[0] = np.maximum.accumulate(keys[0])
+    return pts, keys
+
+
+@pytest.mark.parametrize("rounds", range(1, 8))
+def test_seg_rounds_plain_match_step_oracle(rounds):
+    """The aligned plain form against a step-by-step host oracle (the tree
+    from each defined lane, on host ints), both forms: runs that cross
+    tiles, single-lane runs, a run as long as the row; every other lane
+    keeps its input."""
+    field = "fq" if rounds % 2 else "fp"
+    pts, keys = _oracle_inputs(80 + rounds)
+    assert (np.diff(keys[0]) == 0).sum() > 0 and len(set(keys[1])) == 1
+    t = [torch.as_tensor(v.astype(np.int32)) for v in pts]
+    for tile in (0, SEG_TILE):
+        got = TFK.ec_seg_rounds_plain(*t, torch.as_tensor(keys), rounds, field, tile)
+        want = _seg_oracle(pts, keys, rounds, tile, field)
+        d = _defined(keys, rounds, tile)
+        assert len(want) == int(d.sum())
+        for (row, i), pt in want.items():
+            for c in range(3):
+                limbs = got[c][:, row, i].numpy().astype(np.int64)
+                assert sum(int(v) << (16 * j) for j, v in enumerate(limbs)) == pt[c]
+        for g, p in zip(got, pts):
+            np.testing.assert_array_equal(g.numpy()[:, ~d], p[:, ~d])
 
 
 # --- the general Pippenger -------------------------------------------------
@@ -241,28 +356,68 @@ def test_msm_multi_projective_with_identity_padding():
 
 
 def test_msm_horners_are_chained_launches(monkeypatch):
-    """Each Horner of the general MSM (over the bits of every window's
-    bucket digits, then over the windows) is one ec_horner_lm call, and the
-    MSM keeps its result; so is the bit Horner of a fixed-base chunk."""
+    """The general MSM weights every window's buckets in one
+    ec_bucket_weights_lm call (each bit row's tree and the Horner over the
+    bits), then runs its Horner over the windows as one ec_horner_lm call,
+    and keeps its result."""
     calls = []
-    horner = TM.FK.ec_horner_lm
+    horner, weights = TM.FK.ec_horner_lm, TM.FK.ec_bucket_weights_lm
 
     def spy(wx, wy, wz, doublings, field):
-        calls.append((wx.shape[1], doublings, wx.shape[2]))
+        calls.append(("horner", wx.shape[1], doublings, wx.shape[2]))
         return horner(wx, wy, wz, doublings, field)
 
+    def spy_weights(bx, by, bz, c, field):
+        calls.append(("weights", c, bx.shape[1] >> c))
+        return weights(bx, by, bz, c, field)
+
     monkeypatch.setattr(TM.FK, "ec_horner_lm", spy)
+    monkeypatch.setattr(TM.FK, "ec_bucket_weights_lm", spy_weights)
     jpts, tpts, cols, limbs = _general_inputs("fq", 16, 2, 66)
     pts = [_t(v) for v in ec.points_to_device(tpts)]
     out = TM.msm(*pts, _t(limbs[0]), field="fq", c=4)
     got = ec.points_from_device((out[0][None], out[1][None], out[2][None]), VestaPoint)
     assert _affine(got) == [_j_host(jpts, cols[0])]
-    # 64 windows of 4 bits: the bits of all windows' digits, then the windows
-    assert calls == [(4, 1, 64), (64, 4, 1)]
+    # 64 windows of 4 bits: the buckets of all windows' digits, then the windows
+    assert calls == [("weights", 4, 64), ("horner", 64, 4, 1)]
     calls.clear()
     out = TM.msm_multi(*pts, _t(limbs), field="fq", c=4)
     assert _affine(_points_of(out, VestaPoint)) == [_j_host(jpts, c) for c in cols]
-    assert calls == [(4, 1, 128), (64, 4, 2)]
+    assert calls == [("weights", 4, 128), ("horner", 64, 4, 2)]
+
+
+def test_msms_read_only_defined_lanes(monkeypatch, tables):
+    """Every lane that ec_seg_rounds leaves undefined (offset from its
+    run's first lane not a multiple of 2^rounds) overwritten with random
+    limbs: msm, msm_multi (their _compact and in-place rounds) and
+    msm_fixed_multi (the Hillis-Steele and the blocked paths) give the same
+    limbs, so no caller reads an undefined lane."""
+    seg = TM.FK.ec_seg_rounds_lm
+    rng = np.random.default_rng(67)
+    poisoned = []
+
+    def poison(x, y, z, keys, rounds, field="fq", tile=0):
+        out = seg(x, y, z, keys, rounds, field, tile)
+        bad = (TM.FK.seg_offsets(keys, tile) % (1 << rounds) != 0)[None]
+        poisoned.append(int(bad.sum()))
+        noise = [torch.as_tensor(rng.integers(0, 1 << 16, size=tuple(v.shape), dtype=np.int32))
+                 for v in out]
+        return tuple(torch.where(bad, n, v) for n, v in zip(noise, out))
+
+    _, tpts, _, limbs = _general_inputs("fq", 64, 2, 68)
+    pts = [_t(v) for v in ec.points_to_device(tpts)]
+    s = _scalars(2, 69)
+    runs = [lambda: TM.msm(*pts, _t(limbs[0]), field="fq", c=4),
+            lambda: TM.msm_multi(*pts, _t(limbs), field="fq", c=4),
+            lambda: TM.msm_fixed_multi(tables[8], torch.as_tensor(s.astype(np.int32)), "fq", 8),
+            lambda: TM.msm_fixed_multi(tables[4], torch.as_tensor(s[:1].astype(np.int32)),
+                                       "fq", 4)]
+    want = [run() for run in runs]
+    monkeypatch.setattr(TM.FK, "ec_seg_rounds_lm", poison)
+    for run, w in zip(runs, want):
+        poisoned.clear()
+        assert torch.equal(run(), w)
+        assert sum(poisoned) > 0  # the run had undefined lanes, all overwritten
 
 
 def test_msm_all_zero_scalars():
