@@ -38,7 +38,14 @@ exit code and no result line:
      weighting ec_bucket_weights (each bit row's tree and the Horner over
      the bits in one launch) on both fields at a fixed-base chunk's 8
      columns and the general MSM's 32 windows of 256 buckets, empty
-     buckets among them, and timed at both;
+     buckets among them, and timed at both; the grand products' kernels
+     (csrc/grand_product.cu): K8 (Fermat's inversion, one thread a lane,
+     on both fields), K9 (prefix and suffix products: both ways at rows of
+     1 to 2,049 with a zero, at poly.powers' expanded layout and at the
+     fixed-base table's 262,144 Fq lanes) and K10 (the numerators and
+     denominators, its permutation and lookup entries), with the lanes 0,
+     1 and p - 1, at a single proof's and a batch of 8's shapes, timed at
+     both (profiler);
   5. prove one compliance (Action) proof at k = 13 on the card with seeded
      blinds, cold (recording the selected share of every K3-family launch,
      as a histogram) and then warm, with the native (host) IPA open: counts
@@ -53,8 +60,8 @@ exit code and no result line:
      native engine and through the device MSM (msm_device="cuda"); the
      device MSM's final check must refuse it with its a0 changed, and the
      verifier must refuse it for a changed instance. A profiled device-IPA
-     proof, which launches K1, K2, K4, K5, ec_seg_rounds, ec_horner and
-     ec_bucket_weights,
+     proof, which launches K1, K2, K4, K5, K8-K10, ec_seg_rounds,
+     ec_horner and ec_bucket_weights,
      gives each kernel's device time per proof, the device's busy time and
      its number of device operations;
   6. print per-stage wall times of both warm proofs beside the card's name
@@ -185,6 +192,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import random
 import struct
@@ -239,6 +247,10 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "ec_double": ("k_ec_double_jac",),
     "poseidon": ("k_poseidon_permute",),
     "poseidon_sponge": ("k_poseidon_sponge",),
+    "mont_inv": ("k_mont_inv",),
+    "mont_cumprod": ("k_cumprod_totals", "k_cumprod_apply"),
+    "perm_terms": ("k_perm_terms",),
+    "lookup_terms": ("k_lookup_terms",),
 }
 
 
@@ -665,6 +677,7 @@ def phase_kernels(pk, seed: int, dev):
     res.update(phase_fold_and_jacobian(rng, gen, dev))
     res.update(phase_horner(rng, dev))
     res.update(phase_bucket_weights(gen, dev))
+    res.update(phase_grand_products(pk, gen, dev))
     return res
 
 
@@ -1117,6 +1130,135 @@ def phase_bucket_weights(gen, dev):
     return res
 
 
+INV_STAGES = 254 + 75  # K8's chain: p - 2's squarings and its other set bits (both fields)
+SCAN_EDGE_N = (1, 2, 7, 1024, 1025, 2049)  # K9's row lengths off and across its 1,024-lane tiles
+
+
+def rows_fe(gen, shape, spec, dev, edge_at=0):
+    """Element-major (..., 16) random canonical elements (< 2^254 < p) drawn
+    on the card, with 0, 1 (R mod p) and p - 1 from the flat lane edge_at
+    on (None: no edge lanes)."""
+    import torch
+    from taiga_tpu_torch.ops import limbs as L
+
+    x = wide_fe(gen, math.prod(shape), dev).T.contiguous()
+    if edge_at is not None:
+        for i, v in enumerate((0, spec.r, spec.modulus - 1)[: x.shape[0] - edge_at]):
+            x[edge_at + i] = torch.as_tensor(L.int_to_limbs(v), device=dev)
+    return x.view(*shape, 16)
+
+
+def phase_grand_products(pk, gen, dev):
+    """K8 (mont_inv), K9 (mont_cumprod) and K10 (perm_terms, lookup_terms)
+    against their plain versions bit for bit, at the shapes of a single
+    proof and of a lockstep batch of BATCH (C = proofs x chunks or x
+    lookups rows of n = 2^K) and at the edges: the lanes 0, 1 and p - 1; K8
+    on both fields and at batch_inv's (1, 16) in Fq; K9 forward and reverse
+    with a zero in a row, at SCAN_EDGE_N, at poly.powers' expanded layout
+    and at the fixed-base table's 262,144 lanes in Fq. Then each timed at
+    both shapes (the profiler's device time, a call's launches summed)."""
+    import torch
+    from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L
+    from taiga_tpu_torch.plonk.circuit import PERM_CHUNK
+    from taiga_tpu_torch.plonk.protocol import num_chunks
+
+    vk = pk.vk
+    P, nlk, nc = len(vk.perm_cols), len(vk.cs.lookups), num_chunks(vk.perm_cols)
+    fe, n = 16 * 4, N
+    res, err = {}, 0
+
+    def held(name, got, plain):
+        nonlocal err
+        with FK.plain_versions():
+            want, ms = once_ms(plain)
+        got = got if isinstance(got, tuple) else (got,)
+        err = max(err, compare(name, got, want if isinstance(want, tuple) else (want,)))
+        return ms
+
+    # K8: both fields' edges, batch_inv's one Fq lane, the grand products' C
+    for field in ("fp", "fq"):
+        a = rows_fe(gen, (64,), L.FIELDS[field], dev)
+        held(f"mont_inv[{field}]", FK.mont_inv_lm(a, field), lambda: FK.mont_inv_lm(a, field))
+        one = a[:1]
+        held(f"mont_inv[{field}, 1 lane]", FK.mont_inv_lm(one, field),
+             lambda: FK.mont_inv_lm(one, field))
+    # K9: row lengths at and across the tiles' edges, a zero in a row
+    for field in ("fp", "fq"):
+        for m in SCAN_EDGE_N:
+            a = rows_fe(gen, (3, m), L.FIELDS[field], dev)
+            a[1, m // 2] = 0
+            for rev in (False, True):
+                held(f"mont_cumprod[{field}, 3 x {m}, reverse={rev}]",
+                     FK.mont_cumprod_lm(a, field, rev), lambda: FK.mont_cumprod_lm(a, field, rev))
+    x = rows_fe(gen, (3,), L.FP, dev)
+    pw = x.expand(n - 1, 3, 16).movedim(0, -2)  # poly.powers' view: stride 0 along the scan
+    held("mont_cumprod[powers' layout]", FK.mont_cumprod_lm(pw), lambda: FK.mont_cumprod_lm(pw))
+    zs = rows_fe(gen, (1, 32 * n), L.FQ, dev)  # fixed_base_table's batch_inv: W x N lanes
+    zs[0, :3] = zs[0, 3:6]  # nonzero, as the table's z
+    held("mont_cumprod[fq, batch_inv]", FK.mont_cumprod_lm(zs, "fq"),
+         lambda: FK.mont_cumprod_lm(zs, "fq"))
+
+    # the grand products' shapes: one proof (the row) and a batch (its batch_ keys)
+    for B in (1, BATCH):
+        key = "row" if B == 1 else "batch"
+        cols = rows_fe(gen, (B, P, n), L.FP, dev)
+        sigma, omega = rows_fe(gen, (P, n), L.FP, dev), rows_fe(gen, (n,), L.FP, dev)
+        # beta, gamma: the edges on the batch's last proofs, none at a proof's
+        # shape, so every proof but those has each term of the products
+        edge = B - 3 if B > 3 else None
+        beta, gamma = (rows_fe(gen, (B,), L.FP, dev, edge) for _ in range(2))
+        delta = rows_fe(gen, (P,), L.FP, dev)
+        pin = (cols, sigma, omega, beta, gamma, delta)
+        num, den = FK.perm_terms_lm(*pin, PERM_CHUNK)
+        p_plain = held(f"perm_terms[B={B}]", (num, den), lambda: FK.perm_terms_lm(*pin, PERM_CHUNK))
+        lk = [rows_fe(gen, (B, nlk, n), L.FP, dev) for _ in range(4)]
+        lin = (*lk, beta, gamma)
+        l_plain = held(f"lookup_terms[B={B}]", FK.lookup_terms_lm(*lin),
+                       lambda: FK.lookup_terms_lm(*lin))
+        rows = num.reshape(B * nc, n, 16)
+        s_plain = held(f"mont_cumprod[B={B}]", FK.mont_cumprod_lm(rows),
+                       lambda: FK.mont_cumprod_lm(rows))
+        held(f"mont_cumprod[B={B}, reverse]", FK.mont_cumprod_lm(rows, reverse=True),
+             lambda: FK.mont_cumprod_lm(rows, reverse=True))
+        tot = rows[:, -1].contiguous()
+        i_plain = held(f"mont_inv[B={B}]", FK.mont_inv_lm(tot), lambda: FK.mont_inv_lm(tot))
+
+        per_call = 2 if n > 1024 else 1  # K9's launches: tile totals, then the scan
+        ms = {"mont_inv": kernel_ms("mont_inv", lambda: FK.mont_inv_lm(tot), 20),
+              "mont_cumprod": per_call * kernel_ms("mont_cumprod",
+                                                   lambda: FK.mont_cumprod_lm(rows), 20,
+                                                   per_call),
+              "perm_terms": kernel_ms("perm_terms", lambda: FK.perm_terms_lm(*pin, PERM_CHUNK),
+                                      20),
+              "lookup_terms": kernel_ms("lookup_terms", lambda: FK.lookup_terms_lm(*lin), 20)}
+        C, Cl = B * nc, B * nlk
+        bounds = {
+            "mont_inv": bound_ms(2 * fe * C, INV_STAGES * MM_IMADS * C),
+            "mont_cumprod": bound_ms(2 * fe * C * n, (n - 1) * MM_IMADS * C),
+            # beta delta^j once a (proof, column); then 4 products a column,
+            # less each chunk's first two, an element
+            "perm_terms": bound_ms(fe * ((B + 1) * P * n + n + 2 * B + P + 2 * C * n),
+                                   ((4 * P - 2 * nc) * B * n + B * P) * MM_IMADS),
+            "lookup_terms": bound_ms(fe * 6 * Cl * n, 2 * MM_IMADS * Cl * n)}
+        plain = {"mont_inv": i_plain, "mont_cumprod": s_plain, "perm_terms": p_plain,
+                 "lookup_terms": l_plain}
+        shapes = {"mont_inv": (C, 16), "mont_cumprod": (C, n, 16), "perm_terms": (B, P, n, 16),
+                  "lookup_terms": (B, nlk, n, 16)}
+        for name in ms:
+            log(f"{name:18s} at {shapes[name]}: equal; {ms[name]:.6f} ms a call (plain "
+                f"{plain[name]:.3f} ms, bound {bounds[name][0]:.6f} ms by {bounds[name][1]})"
+                + (f"; one chain of {INV_STAGES} product stages, "
+                   f"{ms[name] / INV_STAGES * 1e3:.3f} us a stage" if name == "mont_inv" else ""))
+            res.setdefault(name, {})[key] = dict(ms=ms[name], plain_ms=plain[name],
+                                                 bound=bounds[name], B=shapes[name])
+    edge_n = "/".join(map(str, SCAN_EDGE_N))
+    log(f"K8-K10 equal to their plain versions on every lane: K8 on fp and fq with 0, 1 and "
+        f"p - 1, K9 at 3 x {edge_n} both ways with a zero, at powers' layout and at 1 x "
+        f"{32 * n} in fq, and all at a proof's and a batch of {BATCH}'s shapes ({nc} chunks of "
+        f"{P} permutation columns and {nlk} lookups a proof)")
+    return {name: dict(err=err, **by["row"], batch=by["batch"]) for name, by in res.items()}
+
+
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device",
@@ -1173,6 +1315,21 @@ KERNELS = [
     # the whole sponge: hash_n_batch, merkle_root (a launch a level), batch_hash_step
     ("poseidon_sponge", "hash_n_batch", "taiga_tpu_torch/csrc/poseidon.cu",
      "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:90", ("poseidon", "parallel")),
+    # the grand products (every proof); K8 and K9 also in the fixed-base
+    # table's batch_inv, K9 in poly.powers
+    ("mont_inv", "mont_inv_lm", "taiga_tpu_torch/csrc/grand_product.cu",
+     "none: the XLA program taiga_tpu/ops/limbs.py:281 (in taiga_tpu/plonk/prover.py:303, 428)",
+     ("native", "device", "batch", "tx", "vamp_ir")),
+    ("mont_cumprod", "mont_cumprod_lm", "taiga_tpu_torch/csrc/grand_product.cu",
+     "none: the XLA program taiga_tpu/ops/poly.py:24 (in taiga_tpu/plonk/prover.py:303, 428)",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list")),
+    # K10, one source with two entries
+    ("perm_terms", "perm_terms_lm", "taiga_tpu_torch/csrc/grand_product.cu",
+     "none: the XLA program taiga_tpu/plonk/prover.py:318-339 (_make_zfn's numerators and "
+     "denominators)", ("native", "device", "batch", "tx", "vamp_ir")),
+    ("lookup_terms", "lookup_terms_lm", "taiga_tpu_torch/csrc/grand_product.cu",
+     "none: the XLA program taiga_tpu/plonk/prover.py:437-443 (_make_lzfn's numerators and "
+     "denominators)", ("native", "device", "batch", "tx", "vamp_ir")),
 ]
 
 
@@ -1187,11 +1344,16 @@ def zero_counts():
         _wrapper(attr).launches = 0
 
 
+def launch_counts() -> dict:
+    """Each KERNELS row's launches since zero_counts()."""
+    return {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
+
+
 def read_counts(what: str, path: str) -> dict:
     """The launch counts since zero_counts(); fails if a kernel of the path
     ("native" or "device" IPA, "batch", "tx", "vamp_ir", "group_law",
     "ipa_list", "poseidon", "parallel") was never launched."""
-    counts = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
+    counts = launch_counts()
     for name, _, _, _, paths in KERNELS:
         if path in paths and counts[name] == 0:
             raise AssertionError(f"the {what} proof never launched {name}")
@@ -1681,13 +1843,12 @@ def phase_tx(seed: int, smi: str):
     class Timed:
         @staticmethod
         def build(*a, **kw):
-            before = {n: _wrapper(attr).launches for n, attr, _, _, _ in KERNELS}
+            before = launch_counts()
             t0 = time.perf_counter()
             ptx = PTX.ShieldedPartialTransaction.build(*a, **kw)
             torch.cuda.synchronize()
             built.append((time.perf_counter() - t0, ptx_proofs(ptx),
-                          {n: _wrapper(attr).launches - before[n]
-                           for n, attr, _, _, _ in KERNELS}))
+                          {n: c - before[n] for n, c in launch_counts().items()}))
             return ptx
 
     zero_counts()
@@ -2652,11 +2813,10 @@ def phase_parallel(pk, seed: int, dev, smi: str):
 
         zero_counts()
         pip = timed("sharded_msm_multi", lambda: SH.sharded_msm_multi(group, gx, gy, gz, scal))
-        before = {name: _wrapper(attr).launches for name, attr, _, _, _ in KERNELS}
+        before = launch_counts()
         bits = timed("sharded_msm_multi bitserial", lambda: SH.sharded_msm_multi(
             group, gx[:nb], gy[:nb], gz[:nb], scal[:, :nb].contiguous(), strategy="bitserial"))
-        in_bits = {name: _wrapper(attr).launches - before[name]
-                   for name, attr, _, _, _ in KERNELS}
+        in_bits = {name: c - before[name] for name, c in launch_counts().items()}
         mesh = timed("ntt_mesh", lambda: ntt.ntt_mesh(group, vec, K, "fp"))
         hashes = timed("batch_hash_step", lambda: SH.batch_hash_step(group, msgs))
         psum = timed("sharded_point_sum", lambda: SH.sharded_point_sum(group, gx, gy, gz))
@@ -2833,6 +2993,8 @@ def main(argv=None) -> int:
             b = r["batch"]
             rows[-1].update(batch_ms=b["ms"], batch_plain_ms=b["plain_ms"],
                             batch_bound_ms=b["bound"][0], batch_bound_by=b["bound"][1])
+        if name == "mont_inv":
+            rows[-1].update(chain_stages=INV_STAGES)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

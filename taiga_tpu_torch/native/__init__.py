@@ -28,17 +28,23 @@ FIELD_FQ = 1
 def _build() -> bool:
     # -march=native: the CIOS inner loop picks up mulx/adcx carry chains
     # (~1.5-2x on mont_mul); the library is built on the machine it runs on,
-    # so native codegen is always safe here
+    # so native codegen is always safe here. Each process builds into its own
+    # file and renames it into place, so a process that loads the library
+    # while another builds it (parallel test workers) never reads a partial one.
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     for flags in (["-O3", "-march=native", "-fopenmp"],
                   ["-O3", "-fopenmp"], ["-O3"]):
         try:
             subprocess.run(
-                ["g++", *flags, "-shared", "-fPIC", "-o", _SO, _SRC],
+                ["g++", *flags, "-shared", "-fPIC", "-o", tmp, _SRC],
                 check=True, capture_output=True, timeout=240,
             )
+            os.replace(tmp, _SO)
             return True
         except Exception:
             continue
+    if os.path.exists(tmp):
+        os.remove(tmp)
     return False
 
 

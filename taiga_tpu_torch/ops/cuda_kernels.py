@@ -21,7 +21,8 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
-SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac", "poseidon")
+SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac", "poseidon",
+           "grand_product")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FIELD_IDS = {"fp": 0, "fq": 1}
 
@@ -102,6 +103,14 @@ _ARGTYPES = {
         "taiga_ec_ladder": [_VP] * 4 + [_I64, ctypes.c_int] + [_VP] * 3
                            + [_I64, _I64, ctypes.c_int, _VP],
         "taiga_ec_add_tree": [_VP] * 6 + [_I64, _I64, ctypes.c_int, _VP],
+    },
+    "grand_product": {
+        "taiga_mont_inv": [_VP, _VP, _I64, ctypes.c_int, _VP],
+        "taiga_cumprod_tiles": [_I64],
+        "taiga_cumprod": [_VP, _I64, _I64, _VP, _I64, _I64, _I64, _I64, ctypes.c_int, _VP,
+                          ctypes.c_int, _VP],
+        "taiga_perm_terms": [_VP] * 8 + [_I64] * 4 + [ctypes.c_int, _VP],
+        "taiga_lookup_terms": [_VP] * 8 + [_I64, _I64, ctypes.c_int, _VP],
     },
     "poseidon": {
         "taiga_poseidon_set_consts": [_VP] * 6,

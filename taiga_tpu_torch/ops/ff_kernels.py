@@ -18,7 +18,13 @@ warp's lanes read neighbouring words.
   K7 ec_add_select_lm   sel ? P1 + P2 : P1 (Jacobian)  csrc/ec_add_jac.cu
      ec_ladder_lm       K7 chained: double-and-add     csrc/ec_add_jac.cu
      ec_double_lm       Jacobian doubling (dbl-2009-l) csrc/ec_add_jac.cu
+  K8 mont_inv_lm        Fermat's a^(p-2) of each row   csrc/grand_product.cu
+  K9 mont_cumprod_lm    prefix or suffix products      csrc/grand_product.cu
+  K10 perm_terms_lm     the grand products' numerators csrc/grand_product.cu
+      lookup_terms_lm   and denominators               csrc/grand_product.cu
   (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu.)
+  K8-K10 take element-major (..., 16) rows, the layout of ops/limbs.py;
+  mont_mul_rows runs K1 on such rows.
 
 Dispatch is by the tensors' device: on the CPU a wrapper runs the plain
 version; on a CUDA tensor it launches its kernel or raises. `plain_versions()`
@@ -33,6 +39,7 @@ inferred from n0inv, which both Pasta primes share.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -47,7 +54,7 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K7, ec_seg_rounds, ec_horner,
+    """Within this block every wrapper (K1-K10, ec_seg_rounds, ec_horner,
     ec_bucket_weights, ec_ladder, ec_double, ec_add_tree, and
     poseidon_kernel's permute_batch and hash_n_batch) runs its plain
     version, on any device. Used to hold
@@ -509,6 +516,54 @@ def ec_fold_shared_plain(gx_lo, gy_lo, gz_lo, gx_hi, gy_hi, gz_hi, scalar, field
     return ec_add_proj_plain(gx_lo, gy_lo, gz_lo, *acc, field=field)
 
 
+def mont_inv_plain(a, field: str = "fp"):
+    """Plain version of K8: Fermat's chain (L.mont_inv) over (C, 16) rows."""
+    return L.mont_inv(a, _spec(field))
+
+
+def mont_cumprod_plain(a, field: str = "fp", reverse: bool = False):
+    """Plain version of K9: inclusive products along the second-last axis of
+    (..., n, 16) rows (suffix products when `reverse`), log2(n) doubling
+    rounds of lm_mul."""
+    if reverse:
+        return torch.flip(mont_cumprod_plain(torch.flip(a, dims=[-2]), field), dims=[-2])
+    spec = _spec(field)
+    return L.from_lm(L.lm_scan(L.to_lm(a), lambda x, y: L.lm_mul(x, y, spec), dim=-1))
+
+
+def perm_terms_plain(cols, sigma, omega_pows, beta, gamma, delta, chunk: int):
+    """Plain version of K10's permutation entry, over Fp: the numerators
+    prod_j (v_j + beta delta^j omega^i + gamma) and denominators
+    prod_j (v_j + beta sigma_j[i] + gamma) of each chunk of `chunk`
+    columns (the last may be shorter), for B proofs' permutation columns
+    cols (B, P, n, 16), sigma (P, n, 16), omega_pows (n, 16), each proof's
+    beta and gamma (B, 16) and delta^j (P, 16). Returns two (B, C, n, 16)."""
+    be, ga = beta[:, None, :], gamma[:, None, :]
+    nums, dens = [], []
+    for j0 in range(0, cols.shape[1], chunk):
+        num = den = None
+        for j in range(j0, min(j0 + chunk, cols.shape[1])):
+            v = cols[:, j]
+            bd = L.mont_mul(be, delta[j], L.FP)
+            t_num = L.add(L.add(v, L.mont_mul(bd, omega_pows, L.FP), L.FP), ga, L.FP)
+            t_den = L.add(L.add(v, L.mont_mul(be, sigma[j], L.FP), L.FP), ga, L.FP)
+            num = t_num if num is None else L.mont_mul(num, t_num, L.FP)
+            den = t_den if den is None else L.mont_mul(den, t_den, L.FP)
+        nums.append(num)
+        dens.append(den)
+    return torch.stack(nums, dim=1), torch.stack(dens, dim=1)
+
+
+def lookup_terms_plain(a, s, ap, sp, beta, gamma):
+    """Plain version of K10's lookup entry, over Fp: (A + beta)(S + gamma)
+    and (A' + beta)(S' + gamma) for B proofs' (B, L, n, 16) columns and
+    each proof's beta and gamma (B, 16)."""
+    be, ga = beta[:, None, None, :], gamma[:, None, None, :]
+    num = L.mont_mul(L.add(a, be, L.FP), L.add(s, ga, L.FP), L.FP)
+    den = L.mont_mul(L.add(ap, be, L.FP), L.add(sp, ga, L.FP), L.FP)
+    return num, den
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -531,6 +586,118 @@ def mont_mul_lm(a, b, field: str = "fq"):
                                CK.stream_ptr(a.device)), "mont_mul")
     mont_mul_lm.launches += 1
     return out
+
+
+def mont_mul_rows(a, b, field: str = "fp"):
+    """K1 over element-major operands: a * b * R^-1 of (..., 16) rows that
+    broadcast against each other, through limb-major copies."""
+    x, y = (L.to_lm(t) for t in torch.broadcast_tensors(a, b))
+    return L.from_lm(mont_mul_lm(x.reshape(NLIMBS, -1), y.reshape(NLIMBS, -1),
+                                 field).reshape(x.shape))
+
+
+def check_rows(name: str, t: torch.Tensor, *shape: int):
+    """dtype and shape of an element-major (..., 16) operand."""
+    if t.dtype != L.DTYPE:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {L.DTYPE}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+
+
+def mont_inv_lm(a, field: str = "fp"):
+    """K8: Fermat's inverse a^(p-2) of each of C Montgomery rows (C, 16),
+    0 mapping to 0: one thread a row runs the whole chain in registers, one
+    launch."""
+    check_rows("a", a, len(a), NLIMBS)
+    if not use_kernel(a):
+        return mont_inv_plain(a, field)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    CK.check(CK.lib("grand_product").taiga_mont_inv(_ptr(a), _ptr(out), a.shape[0],
+                                                    CK.FIELD_IDS[field],
+                                                    CK.stream_ptr(a.device)), "mont_inv")
+    mont_inv_lm.launches += 1
+    return out
+
+
+def _aligned_rows(t: torch.Tensor) -> bool:
+    """Every element of t starts on a 16-byte boundary with its limbs
+    adjacent: the kernels read an element as four 16-byte vectors."""
+    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def mont_cumprod_lm(a, field: str = "fp", reverse: bool = False):
+    """K9: inclusive products along the second-last axis of (..., n, 16)
+    Montgomery rows (suffix products when `reverse`), in one launch, or two
+    when a row is longer than a block's tile. Any strides: an expanded or
+    moved axis is read in place. Returns a contiguous tensor of a's shape."""
+    if a.dim() < 2:
+        raise ValueError(f"a: shape {tuple(a.shape)}, expected (..., n, 16)")
+    check_rows("a", a, *a.shape[:-1], NLIMBS)
+    if not use_kernel(a):
+        return mont_cumprod_plain(a, field, reverse)
+    n = a.shape[-2]
+    v = a if a.dim() == 3 else a.reshape((math.prod(a.shape[:-2]), n, NLIMBS))
+    if not _aligned_rows(v):
+        v = v.contiguous()
+    R = v.shape[0]
+    out = torch.empty((R, n, NLIMBS), dtype=a.dtype, device=a.device)
+    so = CK.lib("grand_product")
+    tiles = so.taiga_cumprod_tiles(n)
+    totals = torch.empty((R * tiles * NLIMBS // 2,) if tiles > 1 else (0,), dtype=a.dtype,
+                         device=a.device)
+    CK.check(so.taiga_cumprod(_ptr(v), v.stride(1), v.stride(0), _ptr(out), NLIMBS, n * NLIMBS,
+                              n, R, int(reverse), _ptr(totals) if tiles > 1 else None,
+                              CK.FIELD_IDS[field], CK.stream_ptr(a.device)), "mont_cumprod")
+    mont_cumprod_lm.launches += 2 if tiles > 1 else 1
+    return out.view(a.shape)
+
+
+def perm_terms_lm(cols, sigma, omega_pows, beta, gamma, delta, chunk: int):
+    """K10, the permutation entry: perm_terms_plain's numerators and
+    denominators of every chunk of B proofs in one launch, one thread an
+    output element. Returns two contiguous (B, C, n, 16)."""
+    B, P, n = cols.shape[:3]
+    for nm, t, shape in (("cols", cols, (B, P, n)), ("sigma", sigma, (P, n)),
+                         ("omega_pows", omega_pows, (n,)), ("beta", beta, (B,)),
+                         ("gamma", gamma, (B,)), ("delta", delta, (P,))):
+        check_rows(nm, t, *shape, NLIMBS)
+    if chunk < 1:
+        raise ValueError(f"perm_terms: chunk {chunk}")
+    ins = (cols, sigma, omega_pows, beta, gamma, delta)
+    if not use_kernel(*ins):
+        return perm_terms_plain(*ins, chunk)
+    ins = tuple(t.contiguous() for t in ins)
+    C = -(-P // chunk)
+    outs = tuple(torch.empty((B, C, n, NLIMBS), dtype=cols.dtype, device=cols.device)
+                 for _ in range(2))
+    CK.check(CK.lib("grand_product").taiga_perm_terms(
+        *map(_ptr, ins + outs), B, P, n, chunk, CK.FIELD_IDS["fp"], CK.stream_ptr(cols.device)),
+        "perm_terms")
+    perm_terms_lm.launches += 1
+    return outs
+
+
+def lookup_terms_lm(a, s, ap, sp, beta, gamma):
+    """K10, the lookup entry: lookup_terms_plain's numerators and
+    denominators of B proofs' (B, L, n, 16) columns in one launch. Returns
+    two contiguous (B, L, n, 16)."""
+    B = a.shape[0]
+    for nm, t in (("a", a), ("s", s), ("ap", ap), ("sp", sp)):
+        check_rows(nm, t, *a.shape[:-1], NLIMBS)
+    check_rows("beta", beta, B, NLIMBS)
+    check_rows("gamma", gamma, B, NLIMBS)
+    ins = (a, s, ap, sp, beta, gamma)
+    if not use_kernel(*ins):
+        return lookup_terms_plain(*ins)
+    ins = tuple(t.contiguous() for t in ins)
+    outs = tuple(torch.empty_like(ins[0]) for _ in range(2))
+    CK.check(CK.lib("grand_product").taiga_lookup_terms(
+        *map(_ptr, ins + outs), B, a[0].numel() // NLIMBS, CK.FIELD_IDS["fp"],
+        CK.stream_ptr(a.device)), "lookup_terms")
+    lookup_terms_lm.launches += 1
+    return outs
 
 
 def ec_add_proj_lm(x1, y1, z1, x2, y2, z2, field: str = "fq"):
@@ -815,3 +982,7 @@ ec_add_select_lm.launches = 0
 ec_ladder_lm.launches = 0
 ec_double_lm.launches = 0
 ec_fold_shared_lm.launches = 0
+mont_inv_lm.launches = 0
+mont_cumprod_lm.launches = 0
+perm_terms_lm.launches = 0
+lookup_terms_lm.launches = 0

@@ -260,6 +260,19 @@ def lm_mul(a, b, spec: FieldSpec):
     return _reduce(out.to(DTYPE), carry.to(DTYPE), spec)
 
 
+def lm_scan(a, op, dim: int = 0):
+    """Inclusive scan of a binary field op along `dim` of a limb-major int32
+    tensor (log2(n) doubling rounds)."""
+    n = a.shape[dim]
+    s = 1
+    while s < n:
+        hi = a.narrow(dim, s, n - s)
+        lo = a.narrow(dim, 0, n - s)
+        a = torch.cat([a.narrow(dim, 0, s), op(hi, lo)], dim=dim)
+        s *= 2
+    return a
+
+
 def to_lm(a: torch.Tensor) -> torch.Tensor:
     """(..., 16) int32 -> contiguous limb-major (16, ...) int32."""
     return a.movedim(-1, 0).contiguous()

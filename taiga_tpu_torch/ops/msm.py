@@ -48,7 +48,6 @@ import torch
 
 from . import ff_kernels as FK
 from . import limbs as L
-from . import poly
 
 WINDOW_BITS = 8
 _CHUNK = 64  # in-chunk reduction span before compaction
@@ -393,15 +392,15 @@ def msm_host(points, scalars):
 
 def batch_inv(v: torch.Tensor, spec: L.FieldSpec) -> torch.Tensor:
     """Inverses of (N, 16) nonzero Montgomery elements: inv_i =
-    prefix_{i-1} * suffix_{i+1} * (prod_all)^-1 — two scans and one Fermat
-    inversion instead of one Fermat chain per lane."""
+    prefix_{i-1} * suffix_{i+1} * (prod_all)^-1 — two scans (K9) and one
+    Fermat inversion (K8) instead of one Fermat chain per lane."""
     one = L.const(spec.one_mont, v.device)[None]
-    pre = poly.mont_cumprod(v, spec.name)
-    suf = torch.flip(poly.mont_cumprod(torch.flip(v, dims=[0]), spec.name), dims=[0])
-    inv_all = L.mont_inv(pre[-1:], spec)
+    pre = FK.mont_cumprod_lm(v, spec.name)
+    suf = FK.mont_cumprod_lm(v, spec.name, reverse=True)
+    inv_all = FK.mont_inv_lm(pre[-1:], spec.name)
     pre_x = torch.cat([one, pre[:-1]])
     suf_x = torch.cat([suf[1:], one])
-    return L.mont_mul(L.mont_mul(pre_x, suf_x, spec), inv_all, spec)
+    return FK.mont_mul_rows(FK.mont_mul_rows(pre_x, suf_x, spec.name), inv_all, spec.name)
 
 
 def fixed_base_table(px, py, pz, field: str = "fq", c: int = WINDOW_BITS):

@@ -4,14 +4,16 @@ multiopen and permutation math on the device.
 
 Port of taiga_tpu/ops/poly.py. All values are (..., 16) int32 Montgomery
 limb tensors over Fp. Field addition and multiplication are exact, so the
-scans here (Hillis-Steele doubling in place of the reference's
-associative_scan) give the reference's values bit for bit.
+scans here (K9, ff_kernels.mont_cumprod_lm, and Hillis-Steele doubling in
+place of the reference's associative_scan) give the reference's values bit
+for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import ff_kernels as FK
 from . import limbs as L
 
 
@@ -19,29 +21,15 @@ def _spec(field: str) -> L.FieldSpec:
     return L.FIELDS[field]
 
 
-def _scan(a, op, dim: int = 0):
-    """Inclusive scan of a binary field op along `dim` of a limb-major int32
-    tensor (log2(n) doubling rounds)."""
-    n = a.shape[dim]
-    s = 1
-    while s < n:
-        hi = a.narrow(dim, s, n - s)
-        lo = a.narrow(dim, 0, n - s)
-        a = torch.cat([a.narrow(dim, 0, s), op(hi, lo)], dim=dim)
-        s *= 2
-    return a
-
-
 def mont_cumprod(a, field: str = "fp"):
-    """Inclusive cumulative product along axis 0."""
-    spec = _spec(field)
-    return L.from_lm(_scan(L.to_lm(a), lambda x, y: L.lm_mul(x, y, spec), dim=1))
+    """Inclusive cumulative product along axis 0 (K9)."""
+    return FK.mont_cumprod_lm(a.movedim(0, -2), field).movedim(-2, 0)
 
 
 def mod_cumsum(a, field: str = "fp"):
     """Inclusive cumulative sum along axis 0 (mod p)."""
     spec = _spec(field)
-    return L.from_lm(_scan(L.to_lm(a), lambda x, y: L.lm_add(x, y, spec), dim=1))
+    return L.from_lm(L.lm_scan(L.to_lm(a), lambda x, y: L.lm_add(x, y, spec), dim=1))
 
 
 def powers(x_mont, n: int, field: str = "fp"):

@@ -138,10 +138,6 @@ class _ShareRand(_Rand):
         return super().per_proof(self.B, count, reduce)[self.share]
 
 
-def _mont_scalar(v: int, device):
-    return L.const(L.int_to_limbs(v * L.FP.r % P), device)
-
-
 @lru_cache(maxsize=None)
 def _ext_domain_tables(k: int):
     """Numpy Montgomery ext-coset tables xid/l0/llast/lblind and Z_H^-1 on the
@@ -232,6 +228,8 @@ class ProverPipeline:
             "fixed_e": self.to_ext(fixed_c),
             "sigma_e": self.to_ext(sigma_c),
             "omega_pows": self._t(L.FP.array_to_mont(self._host_powers(self.omega, n))),
+            "delta_pows": self._t(L.FP.array_to_mont(
+                self._host_powers(DELTA, len(pk.vk.perm_cols)))),
         }
         return self._static
 
@@ -294,19 +292,17 @@ class ProverPipeline:
         """cps[c][i] = prod_{j<=i} num_c[j] / den_c[j] for (C, n, 16) stacks,
         with the division done by ONE Fermat inversion for all C columns:
         inv(prefix_den[i]) = suffix_den_excl[i] * inv(total_den)."""
-        cumprod = lambda a: poly.mont_cumprod(a.movedim(1, 0), "fp").movedim(0, 1)
-        num_cp = cumprod(num)
-        den_sfx = torch.flip(cumprod(torch.flip(den, dims=[1])), dims=[1])
-        inv_total = L.mont_inv(den_sfx[:, 0], L.FP)  # (C, 16)
+        num_cp = FK.mont_cumprod_lm(num, "fp")
+        den_sfx = FK.mont_cumprod_lm(den, "fp", reverse=True)
+        inv_total = FK.mont_inv_lm(den_sfx[:, 0], "fp")  # (C, 16)
         one_row = self._t(L.FP.one_mont).expand(den_sfx.shape[0], 1, L.NLIMBS)
         sfx_excl = torch.cat([den_sfx[:, 1:], one_row], dim=1)
-        den_cp_inv = L.mont_mul(sfx_excl, inv_total[:, None, :], L.FP)
-        return L.mont_mul(num_cp, den_cp_inv, L.FP)
+        den_cp_inv = FK.mont_mul_rows(sfx_excl, inv_total[:, None, :], "fp")
+        return FK.mont_mul_rows(num_cp, den_cp_inv, "fp")
 
     def _mont_per_proof(self, vals: list[int]):
-        """One Montgomery scalar per proof, (B, 1, 16): broadcasts over a
-        proof's (n, 16) column."""
-        return self._t(np.stack([L.int_to_limbs(v * L.FP.r % P) for v in vals]))[:, None, :]
+        """One Montgomery scalar per proof, (B, 16)."""
+        return self._t(np.stack([L.int_to_limbs(v * L.FP.r % P) for v in vals]))
 
     def z_values_batch(self, cols_vb, betas: list[int], gammas: list[int], rand: _Rand):
         """Grand-product columns of B proofs, (B, chunks, n, 16) Montgomery,
@@ -317,34 +313,19 @@ class ProverPipeline:
         n, u = self.n, self.u
         B, nc = cols_vb.shape[0], len(self.chunks)
         rand_rows = self._t(rand.mont_rows(B, nc, n - u - 1))
-        beta_m = self._mont_per_proof(betas)
-        gamma_m = self._mont_per_proof(gammas)
-        perm_index = {c: j for j, c in enumerate(self.pk.vk.perm_cols)}
-        nums, dens = [], []
-        for c, chunk in enumerate(self.chunks):
-            num = den = None
-            for j_local, col in enumerate(chunk):
-                jg = c * PERM_CHUNK + j_local
-                v = cols_vb[:, perm_index[col]]  # (B, n, 16)
-                bd = L.mont_mul(beta_m, _mont_scalar(pow(DELTA, jg, P), self.device), L.FP)
-                t_num = L.add(L.add(v, L.mont_mul(bd, st["omega_pows"], L.FP), L.FP),
-                              gamma_m, L.FP)
-                t_den = L.add(L.add(v, L.mont_mul(beta_m, st["sigma_v"][jg], L.FP), L.FP),
-                              gamma_m, L.FP)
-                num = t_num if num is None else L.mont_mul(num, t_num, L.FP)
-                den = t_den if den is None else L.mont_mul(den, t_den, L.FP)
-            nums.append(num)
-            dens.append(den)
-        flat = lambda cols: torch.stack(cols, dim=1).reshape(B * nc, n, L.NLIMBS)
-        cps = self._grand_products(flat(nums), flat(dens)).reshape(B, nc, n, L.NLIMBS)
+        # cols_vb is in vk.perm_cols order, which self.chunks cuts in turn
+        num, den = FK.perm_terms_lm(cols_vb, st["sigma_v"], st["omega_pows"],
+                                    self._mont_per_proof(betas), self._mont_per_proof(gammas),
+                                    st["delta_pows"], PERM_CHUNK)
+        flat = lambda a: a.reshape(B * nc, n, L.NLIMBS)
+        cps = self._grand_products(flat(num), flat(den)).reshape(B, nc, n, L.NLIMBS)
         # chain: running_c = prod_{c'<c} cp_{c'}[u-1]; z_c[0] = running_c,
         # z_c[i+1] = running_c * cp_c[i] for i < u, blinding rows random
         one = self._t(L.FP.one_mont).expand(B, 1, L.NLIMBS)
-        finals = cps[:, :, u - 1]  # (B, C, 16)
-        prefix = poly.mont_cumprod(finals.movedim(1, 0), "fp").movedim(0, 1)
+        prefix = FK.mont_cumprod_lm(cps[:, :, u - 1], "fp")  # (B, C, 16)
         running = torch.cat([one, prefix[:, :-1]], dim=1)
-        z_main = L.mont_mul(running[:, :, None, :], cps, L.FP)
-        return torch.cat([running[:, :, None, :], z_main[:, :, :u],
+        z_main = FK.mont_mul_rows(running[:, :, None, :], cps[:, :, :u], "fp")
+        return torch.cat([running[:, :, None, :], z_main,
                           rand_rows.reshape(B, nc, n - u - 1, L.NLIMBS)], dim=2)
 
     # --- lookup argument --------------------------------------------------
@@ -385,10 +366,8 @@ class ProverPipeline:
         n, u = self.n, self.u
         B, nlk = a_vb.shape[:2]
         rand_rows = self._t(rand.mont_rows(B, nlk, n - u - 1))
-        beta_m = self._mont_per_proof(betas)[:, None]
-        gamma_m = self._mont_per_proof(gammas)[:, None]
-        num = L.mont_mul(L.add(a_vb, beta_m, L.FP), L.add(s_vb, gamma_m, L.FP), L.FP)
-        den = L.mont_mul(L.add(ap_vb, beta_m, L.FP), L.add(sp_vb, gamma_m, L.FP), L.FP)
+        num, den = FK.lookup_terms_lm(a_vb, s_vb, ap_vb, sp_vb, self._mont_per_proof(betas),
+                                      self._mont_per_proof(gammas))
         flat = lambda a: a.reshape(B * nlk, n, L.NLIMBS)
         cps = self._grand_products(flat(num), flat(den))
         ones = self._t(L.FP.one_mont).expand(B * nlk, 1, L.NLIMBS)

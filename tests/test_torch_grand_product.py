@@ -1,0 +1,207 @@
+"""The grand products' kernels (taiga_tpu_torch.ops.ff_kernels K8 mont_inv_lm,
+K9 mont_cumprod_lm, K10 perm_terms_lm / lookup_terms_lm, csrc/grand_product.cu)
+through their plain versions on the CPU, against the JAX package: K8 against
+taiga_tpu.ops.limbs.mont_inv on both fields, K9 forward and reverse against
+taiga_tpu.ops.poly.mont_cumprod (reverse: its result on the flipped rows),
+and K10 with the finish as the prover runs them, z_values_batch and
+lookup_z_values_batch against the JAX package's ProverPipeline.z_values and
+lookup_z_values on seeded columns and blinding rows at k = 5, for a key of
+seven permutation columns (two chunks, the last one short). Inputs come from
+a seeded numpy generator; every comparison is exact equality of the limbs."""
+
+import random
+import secrets
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from taiga_tpu.ops import limbs as JL, poly as JP
+from taiga_tpu.plonk import prover as JPR
+from taiga_tpu.plonk.circuit import Circuit as JCircuit
+from taiga_tpu.plonk.keygen import keygen as jkeygen
+from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L, poly as TP
+from taiga_tpu_torch.plonk import keygen as TK, prover as TPR
+
+K = 5
+SEED = 20261018
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The plain versions run many small ops: one intra-op thread per test
+    worker keeps them from contending for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _vals(shape, seed, spec=L.FP):
+    """Canonical limbs (< 2^254 < p) of the given batch shape, with 0, 1 (R
+    mod p, Montgomery one) and p - 1 in the first three elements."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 1 << 16, size=shape + (16,), dtype=np.int64)
+    x[..., 15] &= 0x3FFF
+    flat = x.reshape(-1, 16)
+    for i, v in enumerate((0, spec.r, spec.modulus - 1)[: flat.shape[0]]):
+        flat[i] = L.int_to_limbs(v)
+    return x.astype(np.int32)
+
+
+def _ref(fn, *xs):
+    return np.asarray(fn(*(jnp.asarray(x.astype(np.uint32)) for x in xs))).astype(np.int32)
+
+
+def _port(fn, *xs):
+    return fn(*(torch.as_tensor(x) for x in xs)).numpy()
+
+
+_jcumprod = jax.jit(JP.mont_cumprod, static_argnames="field")
+_jinv = jax.jit(JL.mont_inv, static_argnums=1)
+
+
+@pytest.mark.parametrize("field", ["fp", "fq"])
+def test_mont_inv_plain_matches_reference(field):
+    spec = L.FIELDS[field]
+    a = _vals((37,), 1, spec)
+    jspec = JL.FP if field == "fp" else JL.FQ
+    got = _port(lambda x: FK.mont_inv_lm(x, field), a)
+    np.testing.assert_array_equal(got, _ref(lambda x: _jinv(x, jspec), a))
+    assert not got[0].any()  # 0 maps to 0
+    np.testing.assert_array_equal(got[1], spec.one_mont)  # 1 is its own inverse
+
+
+@pytest.mark.parametrize("field,n", [("fp", 1), ("fp", 2), ("fp", 7), ("fp", 64), ("fq", 64)])
+def test_mont_cumprod_plain_matches_reference(field, n):
+    """K9 along the second-last axis of (R, n, 16), forward and reverse; the
+    reference scans axis 0. Row 1 holds a zero, so its products from there
+    on (forward) or up to it (reverse) are 0."""
+    spec = L.FIELDS[field]
+    a = _vals((3, n), 2 + n, spec)
+    a[1, n // 2] = 0
+    ref = lambda x: _jcumprod(x, field=field)
+    fwd = _port(lambda x: FK.mont_cumprod_lm(x, field), a)
+    np.testing.assert_array_equal(fwd, _ref(ref, a.transpose(1, 0, 2)).transpose(1, 0, 2))
+    rev = _port(lambda x: FK.mont_cumprod_lm(x, field, reverse=True), a)
+    want = _ref(ref, a[:, ::-1].transpose(1, 0, 2)).transpose(1, 0, 2)[:, ::-1]
+    np.testing.assert_array_equal(rev, want)
+    assert not fwd[1, n // 2:].any() and not rev[1, : n // 2 + 1].any()
+
+
+def test_mont_cumprod_takes_powers_layout():
+    """poly.powers scans an expanded (n - 1, Q, 16) view along axis 0 (K9 on
+    its moved axis, stride 0 along the scan); the reference's powers of each
+    point alone agree with it."""
+    x = _vals((3,), 7)
+    got = TP.powers(torch.as_tensor(x), 50).numpy()
+    for q in range(3):
+        np.testing.assert_array_equal(got[q], _ref(lambda v: JP.powers(v, 50), x[q]))
+    tiled = np.broadcast_to(x, (49, 3, 16))
+    np.testing.assert_array_equal(
+        _port(lambda t: TP.mont_cumprod(t.expand(49, 3, 16)), x), _ref(_jcumprod, tiled))
+
+
+def test_wrappers_on_the_cpu_launch_nothing():
+    """On CPU tensors every wrapper runs its plain version: no launch is
+    counted, and the shapes are checked first."""
+    counters = (FK.mont_inv_lm, FK.mont_cumprod_lm, FK.perm_terms_lm, FK.lookup_terms_lm,
+                FK.mont_mul_lm)
+    before = [f.launches for f in counters]
+    a = torch.as_tensor(_vals((4, 8), 9))
+    FK.mont_inv_lm(a[0])
+    FK.mont_cumprod_lm(a, reverse=True)
+    FK.lookup_terms_lm(a[None, None], a[None, None], a[None, None], a[None, None], a[0, :1],
+                       a[1, :1])
+    FK.perm_terms_lm(a[None], a, a[0], a[0, :1], a[1, :1], a[2, :4], 3)
+    FK.mont_mul_rows(a, a[0])
+    assert [f.launches for f in counters] == before
+    with pytest.raises(ValueError, match="shape"):
+        FK.mont_inv_lm(a)
+    with pytest.raises(TypeError, match="dtype"):
+        FK.mont_cumprod_lm(a.long())
+    with pytest.raises(ValueError, match="shape"):
+        FK.perm_terms_lm(a[None], a[:3], a[0], a[0, :1], a[1, :1], a[2, :4], 3)
+
+
+def test_mont_mul_rows_matches_limbs():
+    a, b = _vals((5, 6), 10), _vals((6,), 11)
+    got = _port(lambda x, y: FK.mont_mul_rows(x, y), a, b)
+    np.testing.assert_array_equal(got, _port(lambda x, y: L.mont_mul(x, y, L.FP), a, b))
+
+
+class _CopyCircuit(JCircuit):
+    """Six advice columns and the instance in one copy cycle (seven
+    permutation columns: chunks of 4 and 3) and one lookup."""
+
+    NUM_FIXED = 2
+    NUM_ADVICE = 6
+    NUM_INSTANCE = 1
+
+    @classmethod
+    def configure(cls, cs):
+        q, table = cs.fixed(0), cs.fixed(1)
+        cols = [cs.advice(i) for i in range(6)]
+        cs.lookup("small", [(q * cols[0], table)])
+        cs.create_gate("eq", q * (cols[0] - cols[1]))
+        return None
+
+    def synthesize(self, builder, config):
+        row = builder.alloc_rows(2)
+        for i in range(2):
+            builder.assign_fixed(1, row + i, i)
+        builder.assign_fixed(0, row, 1)
+        cells = [builder.assign_advice(i, row, None) for i in range(6)]
+        for c in cells[1:]:
+            builder.copy(cells[0], c)
+        builder.constrain_instance(cells[0], 0)
+
+
+@pytest.fixture(scope="module")
+def pipelines():
+    jpk = jkeygen(_CopyCircuit(), K)
+    assert len(jpk.vk.perm_cols) == 7
+    tpk = TK.proving_key_from_arrays(jpk.vk.to_bytes(), jpk.fixed_mont(), jpk.sigma_mont())
+    return JPR.ProverPipeline(jpk), TPR.ProverPipeline(tpk, "cpu")
+
+
+def _draws(seed):
+    return random.Random(seed).getrandbits
+
+
+def test_z_values_batch_matches_reference(pipelines, monkeypatch):
+    """Two proofs' permutation grand products (K10's permutation entry, K9,
+    K8 and the finish through K1's plain version) against the reference's
+    z_values of each proof in turn, drawing the same blinding rows."""
+    jpipe, tpipe = pipelines
+    B, n = 2, 1 << K
+    cols = _vals((B, 7, n), 12)
+    rng = random.Random(SEED)
+    betas = [rng.randrange(JPR.P) for _ in range(B)]
+    gammas = [rng.randrange(JPR.P) for _ in range(B)]
+    monkeypatch.setattr(secrets, "randbits", _draws(SEED))
+    want = [np.asarray(jpipe.z_values(jnp.asarray(cols[b].astype(np.uint32)), betas[b],
+                                      gammas[b])) for b in range(B)]
+    got = tpipe.z_values_batch(torch.as_tensor(cols), betas, gammas, TPR._Rand(_draws(SEED)))
+    np.testing.assert_array_equal(got.numpy(), np.stack(want).astype(np.int32))
+
+
+def test_lookup_z_values_batch_matches_reference(pipelines, monkeypatch):
+    """Two proofs' lookup grand products of three lookups each (K10's lookup
+    entry, K9, K8, the finish) against the reference's lookup_z_values."""
+    jpipe, tpipe = pipelines
+    B, nlk, n = 2, 3, 1 << K
+    a, s, ap, sp = (_vals((B, nlk, n), 20 + i) for i in range(4))
+    rng = random.Random(SEED + 1)
+    betas = [rng.randrange(JPR.P) for _ in range(B)]
+    gammas = [rng.randrange(JPR.P) for _ in range(B)]
+    monkeypatch.setattr(secrets, "randbits", _draws(SEED + 1))
+    j = lambda x: jnp.asarray(x.astype(np.uint32))
+    want = [np.asarray(jpipe.lookup_z_values(j(a[b]), j(s[b]), j(ap[b]), j(sp[b]), betas[b],
+                                             gammas[b])) for b in range(B)]
+    t = torch.as_tensor
+    got = tpipe.lookup_z_values_batch(t(a), t(s), t(ap), t(sp), betas, gammas,
+                                      TPR._Rand(_draws(SEED + 1)))
+    np.testing.assert_array_equal(got.numpy(), np.stack(want).astype(np.int32))

@@ -6,13 +6,20 @@ compared in one run (parent, change, change, parent).
 The proof is chip_smoke.py's phase 5 native-IPA proof: prove_compliance on
 the statement of random.Random(seed) with blinds from
 random.Random(seed + 1), cold once, then warm `--proofs` times with a
-StageTimer. Prints one JSON object as its last line: the checkout, the
-card (nvidia-smi's name and power limit), the kernels' build time, the
-keygen time, the cold proof's time, each warm proof's total and stage wall
-times in seconds, and the proof's SHA-256 (equal across checkouts whose
-proofs are byte-identical).
+StageTimer. With `--batch B`, then chip_smoke.py's phase 7 lockstep batch
+(prove_compliance_batch on the statements of random.Random(seed + i), i <
+B, blinds from random.Random(seed + 1)), cold once and warm once with a
+StageTimer. With `--count-ops`, one more warm proof (and batch) runs
+under torch.profiler, restarted at every stage mark, and counts each
+stage's device operations (kernels, copies, fills) and their device time.
+Prints one JSON object as its last line: the checkout, the card
+(nvidia-smi's name and power limit), the kernels' build time, the keygen
+time, the cold proof's time, each warm proof's total and stage wall times
+in seconds, the SHA-256 of the proof and of the batch's proofs (equal
+across checkouts whose proofs are byte-identical), and the counts.
 
 Usage: python3 tools/torch_single_proof.py [--root CHECKOUT] [--seed 7] [--proofs 3]
+           [--batch 8] [--count-ops]
 --root is the checkout whose taiga_tpu_torch is imported (and built into
 its own csrc/build/); it defaults to this one. Needs one CUDA device and
 the CUDA toolkit.
@@ -32,11 +39,49 @@ import time
 K = 13
 
 
+class StageOps:
+    """A stage timer's interface (mark) that counts each stage's device
+    operations and their device time: a profiler session a stage, the
+    device synchronized before each is stopped."""
+
+    def __init__(self):
+        self.stages: list[tuple[str, int, float]] = []
+        self._start()
+
+    def _start(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+
+    def mark(self, name: str):
+        import torch
+        from torch.autograd import DeviceType
+
+        torch.cuda.synchronize()
+        self._prof.stop()
+        ops, busy = 0, 0.0
+        for e in self._prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                ops += 1
+                busy += e.duration_ns() / 1e6
+        self.stages.append((name, ops, busy))
+        self._start()
+
+    def close(self):
+        self._prof.stop()
+        return {name: {"device_ops": ops, "device_ms": busy} for name, ops, busy in self.stages}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--proofs", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=0)
+    ap.add_argument("--count-ops", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -79,9 +124,33 @@ def main(argv=None) -> int:
             raise AssertionError("a warm seeded proof differs from the cold one")
         warm.append({"total": total, "stages": dict(timer.stages)})
         print(f"{root}: warm proof {total:.3f} s", flush=True)
-    print(json.dumps({"root": root, "device": smi, "build_s": t_build, "keygen_s": t_keygen,
-                      "cold_s": t_cold, "warm": warm,
-                      "proof_sha256": hashlib.sha256(proof).hexdigest()}), flush=True)
+    out = {"root": root, "device": smi, "build_s": t_build, "keygen_s": t_keygen,
+           "cold_s": t_cold, "warm": warm, "proof_sha256": hashlib.sha256(proof).hexdigest()}
+    if args.count_ops:
+        ops = StageOps()
+        prove(timer=ops)
+        out["proof_ops"] = ops.close()
+    if args.batch:
+        def batch(**kw):
+            t0 = time.perf_counter()
+            _, _, proofs = T.prove_compliance_batch(
+                [random.Random(args.seed + i) for i in range(args.batch)], K, device="cuda",
+                randbits=random.Random(args.seed + 1).getrandbits, **kw)
+            return proofs, time.perf_counter() - t0
+
+        cold_b, out["batch_cold_s"] = batch()
+        timer = StageTimer("cuda")
+        warm_b, total = batch(timer=timer)
+        if warm_b != cold_b:
+            raise AssertionError("a warm seeded batch differs from the cold one")
+        out["batch_warm"] = {"total": total, "stages": dict(timer.stages)}
+        out["batch_sha256"] = hashlib.sha256(b"".join(cold_b)).hexdigest()
+        print(f"{root}: warm batch of {args.batch} {total:.3f} s", flush=True)
+        if args.count_ops:
+            ops = StageOps()
+            batch(timer=ops)
+            out["batch_ops"] = ops.close()
+    print(json.dumps(out), flush=True)
     return 0
 
 
