@@ -45,7 +45,12 @@ exit code and no result line:
      fixed-base table's 262,144 Fq lanes) and K10 (the numerators and
      denominators, its permutation and lookup entries), with the lanes 0,
      1 and p - 1, at a single proof's and a batch of 8's shapes, timed at
-     both (profiler);
+     both (profiler); the NTT's kernel K11 (csrc/ntt.cu, phase_ntt) in all
+     four transforms at every k from 1 to 18 on both fields, on rows of 0,
+     1 and p - 1 and on a moved axis, and at the main path's calls (a
+     proof's iNTT of 12 columns at 2^13, the extension of a proof's and a
+     batch of 8's 12 advice columns at 2^16, a batch's coset iNTT, one Fq
+     shape), timed at each (profiler);
   5. prove one compliance (Action) proof at k = 13 on the card with seeded
      blinds, cold (recording the selected share of every K3-family launch,
      as a histogram) and then warm, with the native (host) IPA open: counts
@@ -60,7 +65,7 @@ exit code and no result line:
      native engine and through the device MSM (msm_device="cuda"); the
      device MSM's final check must refuse it with its a0 changed, and the
      verifier must refuse it for a changed instance. A profiled device-IPA
-     proof, which launches K1, K2, K4, K5, K8-K10, ec_seg_rounds,
+     proof, which launches K1, K2, K4, K5, K8-K11, ec_seg_rounds,
      ec_horner and ec_bucket_weights,
      gives each kernel's device time per proof, the device's busy time and
      its number of device operations;
@@ -251,6 +256,7 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "mont_cumprod": ("k_cumprod_totals", "k_cumprod_apply"),
     "perm_terms": ("k_perm_terms",),
     "lookup_terms": ("k_lookup_terms",),
+    "ntt": ("k_ntt_pass",),
 }
 
 
@@ -532,9 +538,10 @@ def phase_build():
     log(f"build: {len(outs)} sources with nvcc in {time.perf_counter() - t0:.2f} s")
     for name, out in outs.items():
         for line in out.splitlines():
-            fn = re.search(r"(k_[a-z0-9_]+?)(ILb([01])E)?E", line)
+            fn = re.search(r"(k_[a-z0-9_]+?)(I((?:Lb[01]E)+)E)?E", line)
             if "Compiling entry function" in line and fn:
-                log(f"  {name}.cu: {fn.group(1)}{'' if fn.group(3) is None else f'<{fn.group(3)}>'}")
+                args = re.findall(r"Lb([01])E", fn.group(3) or "")
+                log(f"  {name}.cu: {fn.group(1)}" + (f"<{', '.join(args)}>" if args else ""))
             elif "registers" in line or "spill" in line:
                 log(f"  {name}.cu:   {line.strip()}")
 
@@ -678,6 +685,7 @@ def phase_kernels(pk, seed: int, dev):
     res.update(phase_horner(rng, dev))
     res.update(phase_bucket_weights(gen, dev))
     res.update(phase_grand_products(pk, gen, dev))
+    res.update(phase_ntt(gen, dev))
     return res
 
 
@@ -1259,6 +1267,110 @@ def phase_grand_products(pk, gen, dev):
     return {name: dict(err=err, **by["row"], batch=by["batch"]) for name, by in res.items()}
 
 
+NTT_SHAPES = (  # K11 at the main path's calls: (what, batch shape, k, inverse, coset, field)
+    ("intt", (1, 12), K, True, None, "fp"),            # values_to_coeffs: a proof's 12 advice columns
+    ("coset_ntt", (1, 12), K + 3, False, 5, "fp"),     # to_ext: a proof's advice, zero-padded
+    ("coset_ntt", (BATCH, 12), K + 3, False, 5, "fp"),  # to_ext: a batch's advice
+    ("coset_intt", (BATCH, 1), K + 3, True, 5, "fp"),  # quotient_coeffs_batch: a batch's quotients
+    ("intt", (2,), K, True, None, "fq"),               # one Fq shape
+)
+
+
+def ntt_bound(rows: int, k: int, inverse: bool, coset, nonzero: int):
+    """K11's bound: each element read and written once (64 B each) and the
+    tables read once; the products the function needs on rows nonzero only
+    in their first `nonzero` elements (to_ext's padding): a radix-2
+    decimation in frequency's butterflies with a nonzero element, less the
+    one whose twiddle is 1 in each group (k n / 2 - (n - 1) on dense
+    rows), and the scales' (the forward coset's on the nonzero inputs, the
+    inverse's on every output)."""
+    n = 1 << k
+    tables = 32 * (n // 2 + (n if coset is not None else 1 if inverse else 0))
+    # stage s: 2^(s-1) groups, each nonzero in its first min(nonzero, 2 d)
+    # elements, pairs (i, i + d) with d = n / 2^s
+    butterflies = sum((1 << s - 1) * (min(nonzero, n >> s) - 1) for s in range(1, k + 1))
+    scale = n if inverse else (nonzero if coset is not None else 0)
+    return bound_ms(2 * 64 * rows * n + tables, rows * (butterflies + scale) * MM_IMADS)
+
+
+def phase_ntt(gen, dev):
+    """K11 (ntt_lm, csrc/ntt.cu) against its plain version (ntt.ntt_plain)
+    bit for bit: every k from 1 to 18 on both fields in all four
+    transforms; rows of 0, 1 (R mod p) and p - 1; a moved axis as ntt_mesh
+    passes it; then the main path's shapes (NTT_SHAPES; the coset NTTs'
+    inputs zero above n / 8, as to_ext pads them), each timed (profiler
+    device time, a call's launches summed) beside the plain version's
+    time. k = 0 and 19 raise on the card."""
+    import torch
+    from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L, ntt as NT
+
+    kinds = {"ntt": (False, None), "intt": (True, None), "coset_ntt": (False, 5),
+             "coset_intt": (True, 5)}
+    err = 0
+
+    def held(what, x, k, field, inverse, coset):
+        nonlocal err
+        got = FK.ntt_lm(x, k, field, inverse, coset)
+        want, ms = once_ms(lambda: NT.ntt_plain(x, k, field, inverse, coset))
+        err = max(err, compare(f"ntt[{what}]", (got,), (want,)))
+        return ms
+
+    t0 = time.perf_counter()
+    for field in ("fp", "fq"):
+        spec = L.FIELDS[field]
+        for k in range(1, FK.NTT_K_MAX + 1):
+            x = rows_fe(gen, (2 if k <= 16 else 1, 1 << k), spec, dev)
+            for kind, (inverse, coset) in kinds.items():
+                held(f"{kind}, {field}, k={k}", x, k, field, inverse, coset)
+        # rows of 0, 1 and p - 1, through one and two passes
+        for k in (10, K):
+            x = torch.stack([torch.as_tensor(L.int_to_limbs(v), dtype=torch.int32,
+                                             device=dev).expand(1 << k, 16)
+                             for v in (0, spec.r, spec.modulus - 1)])
+            for kind, (inverse, coset) in kinds.items():
+                held(f"{kind}, {field}, k={k}, constant rows", x, k, field, inverse, coset)
+    moved = rows_fe(gen, (1 << K, 3), L.FP, dev).transpose(0, 1)  # ntt_mesh's a.transpose(0, 1)
+    for kind, (inverse, coset) in kinds.items():
+        held(f"{kind}, moved axis", moved, K, "fp", inverse, coset)
+    for k in (0, FK.NTT_K_MAX + 1):
+        x = torch.zeros((1, 1 << k, 16), dtype=torch.int32, device=dev)
+        try:
+            FK.ntt_lm(x, k)
+        except ValueError:
+            continue
+        raise AssertionError(f"ntt_lm ran at k = {k}, outside 1 .. {FK.NTT_K_MAX}")
+    log(f"K11 ntt equal to its plain version at every k from 1 to {FK.NTT_K_MAX} on fp and fq "
+        f"in all four transforms, on constant rows of 0, 1 and p - 1 and on a moved axis; k = 0 "
+        f"and {FK.NTT_K_MAX + 1} refused ({time.perf_counter() - t0:.1f} s)")
+
+    shapes = {}
+    for kind, batch, k, inverse, coset, field in NTT_SHAPES:
+        n = 1 << k
+        x = rows_fe(gen, (*batch, n), L.FIELDS[field], dev)
+        nonzero = n
+        if coset is not None and not inverse:
+            x[..., n // 8:, :] = 0  # to_ext's zero padding
+            nonzero = n // 8
+        key = f"{kind} {field} {tuple(batch) + (n,)}"
+        before = FK.ntt_lm.launches
+        plain = held(key, x, k, field, inverse, coset)
+        per_call = FK.ntt_lm.launches - before
+        ms = per_call * kernel_ms("ntt", lambda: FK.ntt_lm(x, k, field, inverse, coset), 20,
+                                  per_call)
+        rows = math.prod(batch)
+        bound = ntt_bound(rows, k, inverse, coset, nonzero)
+        shapes[key] = dict(ms=ms, plain_ms=plain, bound=bound)
+        log(f"K11 ntt {key:34s}: equal; {ms:.6f} ms a call of {per_call} launches (plain "
+            f"{plain:.3f} ms, bound {bound[0]:.6f} ms by {bound[1]})")
+        del x
+    # the row: a proof's extension (NTT_SHAPES[1]); its batch_ keys: a batch's (NTT_SHAPES[2])
+    row, batch = (shapes[list(shapes)[i]] for i in (1, 2))
+    return {"ntt": dict(err=err, **row, batch=batch,
+                        shapes={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                                        bound_ms=v["bound"][0], bound_by=v["bound"][1])
+                                for k, v in shapes.items()})}
+
+
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device",
@@ -1330,6 +1442,10 @@ KERNELS = [
     ("lookup_terms", "lookup_terms_lm", "taiga_tpu_torch/csrc/grand_product.cu",
      "none: the XLA program taiga_tpu/plonk/prover.py:437-443 (_make_lzfn's numerators and "
      "denominators)", ("native", "device", "batch", "tx", "vamp_ir")),
+    # K11: every transform of the prover, keygen's device commit and ntt_mesh
+    ("ntt", "ntt_lm", "taiga_tpu_torch/csrc/ntt.cu",
+     "none: the XLA programs taiga_tpu/ops/ntt.py:120 (_ntt_fixed_jit) and :252 "
+     "(_coset_scale_jit)", ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
 ]
 
 
@@ -2995,6 +3111,8 @@ def main(argv=None) -> int:
                             batch_bound_ms=b["bound"][0], batch_bound_by=b["bound"][1])
         if name == "mont_inv":
             rows[-1].update(chain_stages=INV_STAGES)
+        if "shapes" in r:  # K11 at each of the main path's calls
+            rows[-1].update(shapes=r["shapes"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

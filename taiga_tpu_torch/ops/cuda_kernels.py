@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac", "poseidon",
-           "grand_product")
+           "grand_product", "ntt")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FIELD_IDS = {"fp": 0, "fq": 1}
 
@@ -111,6 +111,10 @@ _ARGTYPES = {
                           ctypes.c_int, _VP],
         "taiga_perm_terms": [_VP] * 8 + [_I64] * 4 + [ctypes.c_int, _VP],
         "taiga_lookup_terms": [_VP] * 8 + [_I64, _I64, ctypes.c_int, _VP],
+    },
+    "ntt": {
+        "taiga_ntt": [_VP, _I64, _I64, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _I64, ctypes.c_int,
+                      ctypes.c_int, _VP],
     },
     "poseidon": {
         "taiga_poseidon_set_consts": [_VP] * 6,

@@ -22,8 +22,10 @@ warp's lanes read neighbouring words.
   K9 mont_cumprod_lm    prefix or suffix products      csrc/grand_product.cu
   K10 perm_terms_lm     the grand products' numerators csrc/grand_product.cu
       lookup_terms_lm   and denominators               csrc/grand_product.cu
-  (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu.)
-  K8-K10 take element-major (..., 16) rows, the layout of ops/limbs.py;
+  K11 ntt_lm            the NTT family, two passes     csrc/ntt.cu
+  (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu;
+  K11's plain version is ops/ntt.py::ntt_plain.)
+  K8-K11 take element-major (..., 16) rows, the layout of ops/limbs.py;
   mont_mul_rows runs K1 on such rows.
 
 Dispatch is by the tensors' device: on the CPU a wrapper runs the plain
@@ -54,7 +56,7 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K10, ec_seg_rounds, ec_horner,
+    """Within this block every wrapper (K1-K11, ec_seg_rounds, ec_horner,
     ec_bucket_weights, ec_ladder, ec_double, ec_add_tree, and
     poseidon_kernel's permute_batch and hash_n_batch) runs its plain
     version, on any device. Used to hold
@@ -700,6 +702,51 @@ def lookup_terms_lm(a, s, ap, sp, beta, gamma):
     return outs
 
 
+NTT_K_MAX = 18  # the largest domain K11 takes, 2^18: two passes of 2^9 (csrc/ntt.cu)
+NTT_ONE_PASS_K = 10  # K11 runs k <= 10 in one launch, a larger k in two (csrc/ntt.cu kMaxLog)
+
+
+def ntt_lm(x, k: int, field: str = "fp", inverse: bool = False, coset: int | None = None):
+    """K11: the NTT of (..., n, 16) Montgomery rows along the second-last
+    axis, n = 2^k, natural order in and out; the inverse (w^-1 and n^-1)
+    when `inverse`; over the coset g H with g = `coset` (the forward scales
+    its input by g^i, the inverse its output by g^-i). Two launches (a
+    four-step split, each pass in shared memory; the scales fused into the
+    first pass's loads and the last pass's stores), one for k <= 10, each
+    counted. Any strides: a moved axis is read in place. Returns a
+    contiguous tensor of x's shape. On the card 1 <= k <= NTT_K_MAX."""
+    from . import ntt as NT  # ops/ntt.py holds the plain version and the tables
+
+    if x.dim() < 2:
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected (..., n, 16)")
+    check_rows("x", x, *x.shape[:-2], 1 << k, NLIMBS)
+    if not use_kernel(x):
+        return NT.ntt_plain(x, k, field, inverse, coset)
+    if not 1 <= k <= NTT_K_MAX:
+        raise ValueError(f"ntt: k = {k}, the kernel takes 1 .. {NTT_K_MAX}")
+    n = 1 << k
+    v = x if x.dim() == 3 else x.reshape((math.prod(x.shape[:-2]), n, NLIMBS))
+    if not _aligned_rows(v):
+        v = v.contiguous()
+    R = v.shape[0]
+    out = torch.empty((R, n, NLIMBS), dtype=x.dtype, device=x.device)
+    if R == 0:
+        return out.view(x.shape)
+    so = CK.lib("ntt")
+    launches = 1 if k <= NTT_ONE_PASS_K else 2
+    scratch = torch.empty((R, n, NLIMBS // 2) if launches > 1 else (0,), dtype=x.dtype,
+                          device=x.device)
+    tw, pre, post = NT.kernel_tables(k, field, inverse, coset, str(x.device))
+    CK.check(so.taiga_ntt(_ptr(v), v.stride(0), v.stride(1), _ptr(out),
+                          _ptr(scratch) if launches > 1 else None, _ptr(tw),
+                          None if pre is None else _ptr(pre),
+                          None if post is None else _ptr(post),
+                          int(post is not None and post.shape[0] > 1), R, k,
+                          CK.FIELD_IDS[field], CK.stream_ptr(x.device)), "ntt")
+    ntt_lm.launches += launches
+    return out.view(x.shape)
+
+
 def ec_add_proj_lm(x1, y1, z1, x2, y2, z2, field: str = "fq"):
     """K2: projective (RCB complete) addition over (16, B) limb-major points."""
     B = x1.shape[-1]
@@ -986,3 +1033,4 @@ mont_inv_lm.launches = 0
 mont_cumprod_lm.launches = 0
 perm_terms_lm.launches = 0
 lookup_terms_lm.launches = 0
+ntt_lm.launches = 0

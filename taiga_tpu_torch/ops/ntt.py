@@ -1,14 +1,18 @@
-"""Radix-2 NTT over Fp/Fq as vectorized limb tensors.
+"""Radix-2 NTT over Fp/Fq on (..., n, 16) Montgomery rows.
 
-Port of taiga_tpu/ops/ntt.py: the constant-geometry (Pease) DIF NTT with
-its final bit reversal, plus coset evaluation for the vanishing argument's
-extended domain. Every stage is the SAME butterfly on static halves —
-u = x[:n/2], v = x[n/2:], out interleaved as (u+v, (u-v)*tw) — then one
-gather undoes the bit reversal. Plain torch ops (the reference's NTT is
-plain XLA, not Pallas); the whole transform runs limb-major in int32, with
-one layout change in and one out.
+Port of taiga_tpu/ops/ntt.py. On a CUDA tensor every transform (ntt,
+intt, coset_ntt, coset_intt) is K11, ff_kernels.ntt_lm (csrc/ntt.cu): a
+four-step split into two shared-memory passes (one for k <= 10), the
+coset and n^-1 scales fused into its loads and stores, its twiddles from
+one compact table (twiddle_table). The plain version, ntt_plain, is the
+reference's constant-geometry (Pease) DIF NTT with its final bit reversal
+and the coset scale as a separate product, limb-major in plain torch ops;
+the CPU runs it. The four-step NTT over a process group (ntt_mesh) runs
+its sub-transforms through the same wrapper.
 
-Bit-exact vs taiga_tpu.ops.ntt (tests/test_torch_ntt.py).
+Bit-exact vs taiga_tpu.ops.ntt (tests/test_torch_ntt.py,
+tests/test_torch_ntt_kernel.py); K11 against ntt_plain on the card in
+chip_smoke.py (phase_ntt).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from . import ff_kernels as FK
 from . import limbs as L
 
 
@@ -74,7 +79,7 @@ def _tables(k: int, field: str, inverse: bool, device: str):
     return tw_lm, idx, n_inv
 
 
-def _ntt_core(coeffs: torch.Tensor, k: int, field: str, inverse: bool):
+def _pease(coeffs: torch.Tensor, k: int, field: str, inverse: bool):
     """coeffs: (..., n, 16) Montgomery -> (..., n, 16) Montgomery."""
     spec = _spec(field)
     n = 1 << k
@@ -96,26 +101,11 @@ def _ntt_core(coeffs: torch.Tensor, k: int, field: str, inverse: bool):
     return L.from_lm(x)
 
 
-def ntt(coeffs, k: int, field: str = "fp"):
-    """Forward NTT: coefficients -> evaluations at omega^i (natural order)."""
-    return _ntt_core(coeffs, k, field, False)
-
-
-def intt(evals, k: int, field: str = "fp"):
-    """Inverse NTT: evaluations -> coefficients."""
-    return _ntt_core(evals, k, field, True)
-
-
 @lru_cache(maxsize=None)
 def _coset_powers(k: int, field: str, g: int, inverse: bool) -> np.ndarray:
     spec = _spec(field)
     p = spec.modulus
-    n = 1 << k
-    base = pow(g, -1, p) if inverse else g
-    pows = [1] * n
-    for i in range(1, n):
-        pows[i] = pows[i - 1] * base % p
-    return spec.array_to_mont(pows)
+    return spec.array_to_mont(_powers(pow(g, -1, p) if inverse else g, 1 << k, p))
 
 
 @lru_cache(maxsize=None)
@@ -123,27 +113,105 @@ def _coset_powers_dev(k: int, field: str, g: int, inverse: bool, device: str):
     return torch.as_tensor(_coset_powers(k, field, g, inverse), device=torch.device(device))
 
 
+def ntt_plain(x, k: int, field: str = "fp", inverse: bool = False, coset: int | None = None):
+    """K11's plain version (ff_kernels.ntt_lm): the transform of (..., n,
+    16) Montgomery rows, n = 2^k, as the reference computes it: the coset
+    scale by g^i first (forward, g = `coset`), the constant-geometry Pease
+    stages, the bit-reversal gather and the inverse's n^-1
+    (taiga_tpu/ops/ntt.py::_ntt_fixed_jit), then the scale by g^-i
+    (inverse), each in plain torch ops."""
+    spec = _spec(field)
+    if coset is not None and not inverse:
+        x = L.mont_mul(x, _coset_powers_dev(k, field, coset, False, str(x.device)), spec)
+    x = _pease(x, k, field, inverse)
+    if coset is not None and inverse:
+        x = L.mont_mul(x, _coset_powers_dev(k, field, coset, True, str(x.device)), spec)
+    return x
+
+
+def _powers(base: int, count: int, p: int) -> list[int]:
+    """[base^0, ..., base^(count - 1)] mod p."""
+    out = [1] * count
+    for i in range(1, count):
+        out[i] = out[i - 1] * base % p
+    return out
+
+
+def _mont_packed(vals, spec: L.FieldSpec) -> np.ndarray:
+    """Host ints -> Montgomery form packed as K11 reads it: (N, 8) uint32,
+    an element's 8 little-endian 32-bit words."""
+    return L.ints_to_packed([v * spec.r % spec.modulus for v in vals])
+
+
+@lru_cache(maxsize=None)
+def twiddle_table(k: int, field: str, inverse: bool) -> np.ndarray:
+    """K11's compact twiddle table: w^e for 0 <= e < n/2 (w = omega, or
+    omega^-1 for the inverse; w^(n/2) = -1 gives the rest), Montgomery
+    form, packed (max(n/2, 1), 8) uint32."""
+    p = _spec(field).modulus
+    omega, omega_inv, _, _ = domain_params(k, field)
+    return _mont_packed(_powers(omega_inv if inverse else omega, max((1 << k) // 2, 1), p),
+                        _spec(field))
+
+
+@lru_cache(maxsize=None)
+def kernel_tables(k: int, field: str, inverse: bool, coset: int | None, device: str):
+    """K11's device tables of one transform, packed (entries, 8) int32:
+    the twiddles; the scale at load (the forward coset's g^i, n entries, or
+    None); the scale at store (the inverse's n^-1, one entry, or n^-1 g^-i
+    with a coset, n entries, or None)."""
+    spec = _spec(field)
+    p, n = spec.modulus, 1 << k
+    dev = torch.device(device)
+
+    def on_dev(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a.view(np.int32), device=dev)
+
+    pre = post = None
+    if inverse:
+        n_inv = domain_params(k, field)[2]
+        scale = [n_inv] if coset is None else [n_inv * c % p
+                                                for c in _powers(pow(coset, -1, p), n, p)]
+        post = on_dev(_mont_packed(scale, spec))
+    elif coset is not None:
+        pre = on_dev(_mont_packed(_powers(coset, n, p), spec))
+    return on_dev(twiddle_table(k, field, inverse)), pre, post
+
+
 def build_tables(k: int, device, field: str = "fp", g: int = 5):
     """Build now the device tables of every transform at 2^k on `device`
-    (forward, inverse and both coset directions), which the transforms
-    otherwise build at first use: for a caller that runs them from
-    several threads."""
-    key = str(torch.empty(0, device=device).device)
+    (forward, inverse and both coset directions; K11's on a CUDA device,
+    the plain version's where that runs), which the transforms otherwise
+    build at first use: for a caller that runs them from several threads."""
+    t = torch.empty(0, device=device)
+    key = str(t.device)
     for inverse in (False, True):
-        _tables(k, field, inverse, key)
-        _coset_powers_dev(k, field, g, inverse, key)
+        if FK.use_kernel(t):
+            for coset in (None, g):
+                kernel_tables(k, field, inverse, coset, key)
+        else:
+            _tables(k, field, inverse, key)
+            _coset_powers_dev(k, field, g, inverse, key)
+
+
+def ntt(coeffs, k: int, field: str = "fp"):
+    """Forward NTT: coefficients -> evaluations at omega^i (natural order)."""
+    return FK.ntt_lm(coeffs, k, field)
+
+
+def intt(evals, k: int, field: str = "fp"):
+    """Inverse NTT: evaluations -> coefficients."""
+    return FK.ntt_lm(evals, k, field, inverse=True)
 
 
 def coset_ntt(coeffs, k: int, field: str = "fp", g: int = 5):
     """Evaluations over the coset g*H (H = 2^k subgroup)."""
-    cpow = _coset_powers_dev(k, field, g, False, str(coeffs.device))
-    return _ntt_core(L.mont_mul(coeffs, cpow, _spec(field)), k, field, False)
+    return FK.ntt_lm(coeffs, k, field, coset=g)
 
 
 def coset_intt(evals, k: int, field: str = "fp", g: int = 5):
-    coeffs = _ntt_core(evals, k, field, True)
-    cpow = _coset_powers_dev(k, field, g, True, str(evals.device))
-    return L.mont_mul(coeffs, cpow, _spec(field))
+    """Coefficients from evaluations over the coset g*H."""
+    return FK.ntt_lm(evals, k, field, inverse=True, coset=g)
 
 
 # ---------------------------------------------------------------------------
@@ -227,11 +295,11 @@ def ntt_mesh(group, x_local: torch.Tensor, k: int, field: str = "fp",
     # row shard (n1/D, n2) of A = x.reshape(n1, n2) -> column shard (n1, n2/D)
     a = _transpose_blocks(group, x_local.reshape(n1 // D, n2, L.NLIMBS))
     # length-n1 column NTTs (local), then the twiddles of this column block
-    a = _ntt_core(a.transpose(0, 1), k1, field, inverse).transpose(0, 1)
+    a = FK.ntt_lm(a.transpose(0, 1), k1, field, inverse).transpose(0, 1)
     a = L.mont_mul(a, tw, spec)
     # -> row shard (n1/D, n2); length-n2 row NTTs (local); the inverse's
     # sub-transforms scale by 1/n1 and 1/n2: 1/n in all
-    a = _ntt_core(_untranspose_blocks(group, a), k2, field, inverse)
+    a = FK.ntt_lm(_untranspose_blocks(group, a), k2, field, inverse)
     # X[j1 + n1*j2] = A'[j1, j2]: to column shards, then this rank's
     # contiguous block of X is its (n2/D, n1) transpose, flattened
     a = _transpose_blocks(group, a)

@@ -1,0 +1,203 @@
+#!/usr/bin/env python3
+"""Time the hand kernels of one checkout of the PyTorch/CUDA port on one
+CUDA card, slice by slice, so that two checkouts can be compared in one run.
+
+A slice is a row of SLICES: the wrapper that marks the checkout as having
+its kernels, its source in csrc/, the kernels' symbols, and its calls at
+the main path's shapes of a k = 13 compliance proof and a lockstep batch
+of 8. A later kernel slice adds a row.
+
+  grand_products  K8 mont_inv_lm, K9 mont_cumprod_lm (both directions) and
+                  K10 perm_terms_lm / lookup_terms_lm at a proof's and a
+                  batch's shapes (P permutation columns in chunks of
+                  CHUNK, LOOKUPS lookups a proof, rows of 2^13).
+  ntt             the public transforms of ops/ntt.py: a proof's 12 advice
+                  columns into coefficients (intt, (1, 12, 2^13)), their
+                  extension (coset_ntt, (1, 12, 2^16)) and a batch's
+                  ((8, 12, 2^16)), the inputs zero above n / 8 as to_ext
+                  pads them, and a batch's quotient back (coset_intt,
+                  (8, 1, 2^16)). A checkout before K11 runs them as plain
+                  torch ops, and is timed all the same.
+
+Each call is timed three ways: the stream time between two CUDA events
+after a warm-up call; under torch.profiler, its device operations (kernels,
+copies, fills) and their summed device time, and the slice's own kernels'
+launches, time and fastest and slowest launch; and, where the checkout has
+the slice's kernels, the plain version's time (ff_kernels.plain_versions,
+CUDA events, one call). With --check each call is first held against its
+plain version bit for bit (a short first call of a new build;
+chip_smoke.py holds them all). Also prints cuobjdump's resource usage of
+each slice's library (registers, shared memory, SASS counts).
+
+Usage: python3 tools/torch_kernel_times.py [--root CHECKOUT] [--slice NAME]... [--seed 7] [--check]
+--root is the checkout whose taiga_tpu_torch is imported (and built into
+its own csrc/build/); it defaults to this one. --slice picks slices (all by
+default). Needs one CUDA device and the CUDA toolkit; prints one JSON
+object as its last line. It imports nothing of chip_smoke.py, so that a
+parent checkout is timed alike.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+from torch_k3_waves import kernel_resources
+from torch_ladder_times import cuda_ms
+
+K = 13
+N = 1 << K
+P, CHUNK, LOOKUPS = 13, 4, 5  # the compliance circuit's permutation columns and lookups
+BATCH = 8
+
+
+def grand_product_calls(mods, fe):
+    """(name, fn, symbols) at a proof's and a batch's shapes."""
+    FK = mods["FK"]
+    calls = []
+    for B in (1, BATCH):
+        C = -(-P // CHUNK)
+        cols, sigma, omega = fe(B, P, N), fe(P, N), fe(N)
+        beta, gamma, delta = fe(B), fe(B), fe(P)
+        lk = [fe(B, LOOKUPS, N) for _ in range(4)]
+        rows = fe(B * C, N)
+        tot = rows[:, -1].contiguous()
+        calls += [
+            (f"mont_inv B={B}", lambda tot=tot: FK.mont_inv_lm(tot), ("k_mont_inv",)),
+            (f"mont_cumprod B={B}", lambda rows=rows: FK.mont_cumprod_lm(rows),
+             ("k_cumprod_totals", "k_cumprod_apply")),
+            (f"mont_cumprod reverse B={B}",
+             lambda rows=rows: FK.mont_cumprod_lm(rows, reverse=True),
+             ("k_cumprod_totals", "k_cumprod_apply")),
+            (f"perm_terms B={B}",
+             lambda a=(cols, sigma, omega, beta, gamma, delta): FK.perm_terms_lm(*a, CHUNK),
+             ("k_perm_terms",)),
+            (f"lookup_terms B={B}", lambda a=(*lk, beta, gamma): FK.lookup_terms_lm(*a),
+             ("k_lookup_terms",)),
+        ]
+    return calls
+
+
+def ntt_calls(mods, fe):
+    NT = mods["NT"]
+    calls = []
+    for fname, batch, k in (("intt", (1, 12), K), ("coset_ntt", (1, 12), K + 3),
+                            ("coset_ntt", (BATCH, 12), K + 3), ("coset_intt", (BATCH, 1), K + 3)):
+        n = 1 << k
+        x = fe(*batch, n)
+        if fname == "coset_ntt":
+            x[..., n // 8:, :] = 0  # to_ext's zero padding
+        fn = getattr(NT, fname)
+        calls.append((f"{fname} {batch + (n,)}", lambda fn=fn, x=x, k=k: fn(x, k, "fp"),
+                      ("k_ntt_pass",)))
+    return calls
+
+
+SLICES = {  # name: (the wrapper that marks the kernels, source, calls; a checkout
+    #            without the wrapper runs the calls only if `before` is True)
+    "grand_products": dict(wrapper="mont_inv_lm", source="grand_product",
+                           calls=grand_product_calls, before=False),
+    "ntt": dict(wrapper="ntt_lm", source="ntt", calls=ntt_calls, before=True),
+}
+
+
+def profiled(fn, reps: int, syms) -> dict:
+    """fn() run reps times under torch.profiler: per call, its device
+    operations and their summed device time, ms, and the launches and time
+    of the kernels named by syms, with their fastest and slowest launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    own = [e.duration_ns() / 1e6 for e in ev if any(s in e.name() for s in syms)]
+    return {"ops": len(ev) / reps, "device_ms": sum(e.duration_ns() for e in ev) / 1e6 / reps,
+            "launches": len(own) / reps, "kernel_ms": sum(own) / reps,
+            "min": min(own, default=None), "max": max(own, default=None)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--slice", action="append", choices=sorted(SLICES), dest="slices")
+    ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--check", action="store_true",
+                    help="hold each call against its plain version first")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from taiga_tpu_torch.ops import cuda_kernels as CK, ff_kernels as FK, ntt as NT
+
+    if not FK.__file__.startswith(root):
+        raise AssertionError(f"imported {FK.__file__}, not the checkout at {root}")
+    CK.build(force=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip().splitlines()[0]
+    print(f"{root}: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+
+    def fe(*shape):  # element-major random canonical elements (< 2^254 < p)
+        x = torch.randint(0, 1 << 16, shape + (16,), generator=gen, dtype=torch.int32,
+                          device=dev)
+        x[..., 15] &= 0x3FFF
+        return x
+
+    def as_tuple(t):
+        return (t,) if torch.is_tensor(t) else tuple(t)
+
+    out = {}
+    for name in args.slices or SLICES:
+        sl = SLICES[name]
+        has = hasattr(FK, sl["wrapper"])
+        print(f"{name}: kernels {'present' if has else 'absent'}", flush=True)
+        res = {"kernels_present": has, "calls": {}}
+        out[name] = res
+        if not has and not sl["before"]:
+            continue
+        for what, fn, syms in sl["calls"]({"FK": FK, "NT": NT}, fe):
+            r = {}
+            if has:
+                if args.check:
+                    got = as_tuple(fn())
+                    with FK.plain_versions():
+                        want = as_tuple(fn())
+                    if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+                        raise AssertionError(f"{what}: the kernel differs from its plain version")
+                    print(f"  {what}: equal to its plain version", flush=True)
+                with FK.plain_versions():
+                    r["plain_ms"] = cuda_ms(fn, 1)
+            r.update(profiled(fn, 10, syms))
+            r["events_ms"] = cuda_ms(fn, 20)
+            res["calls"][what] = r
+            span = "" if r["min"] is None else f" (launches {r['min']:.6f}-{r['max']:.6f})"
+            print(f"  {what}: {r['events_ms']:.6f} ms (events); {r['ops']:.0f} device "
+                  f"operations, {r['device_ms']:.6f} ms device time a call; its kernels "
+                  f"{r['launches']:.0f} launches, {r['kernel_ms']:.6f} ms{span}"
+                  + (f"; plain version {r['plain_ms']:.3f} ms" if has else ""), flush=True)
+        if has:
+            res["resources"] = kernel_resources(CK._so_path(sl["source"]))
+            for k, v in sorted(res["resources"].items()):
+                print(f"  {k}: {v}", flush=True)
+    print(json.dumps({"root": root, "device": smi, "slices": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
