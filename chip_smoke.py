@@ -257,6 +257,9 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "perm_terms": ("k_perm_terms",),
     "lookup_terms": ("k_lookup_terms",),
     "ntt": ("k_ntt_pass",),
+    "eval_polys": ("k_eval_polys", "k_eval_reduce"),
+    "linear_combo": ("k_linear_combo",),
+    "synthetic_div": ("k_div_totals", "k_div_apply"),
 }
 
 
@@ -686,6 +689,7 @@ def phase_kernels(pk, seed: int, dev):
     res.update(phase_bucket_weights(gen, dev))
     res.update(phase_grand_products(pk, gen, dev))
     res.update(phase_ntt(gen, dev))
+    res.update(phase_poly(pk, gen, dev))
     return res
 
 
@@ -1371,6 +1375,174 @@ def phase_ntt(gen, dev):
                                 for k, v in shapes.items()})}
 
 
+RL_K = 12                 # the resource logics' domain 2^RL_K (core/proving.py::resource_logic_k)
+RL_QUERY_SHAPE = (81, 6)  # the trivial resource logic's (C, Q) at k = 12: phase 7 checks its key
+POLY_SHAPES = (  # K12-K14 off the main path's shapes: (kernel, what, n, and its other sizes)
+    ("eval_polys", "tile edge, 10 points", 1025, dict(B=1, C=3, Q=10)),
+    ("eval_polys", "points shared by 2 stacks", 64, dict(B=2, C=3, Q=2, shared=True)),
+    ("linear_combo", "weights shared by 2 stacks", 65, dict(B=2, C=3, shared=True)),
+    ("linear_combo", "one column of one", 1, dict(B=1, C=1)),
+    ("synthetic_div", "a shared point", 2049, dict(B=2, G=1, shared=True)),
+) + tuple(("synthetic_div", f"n = {n}", n, dict(B=1, G=3)) for n in (1, 2, 1024, 1025))
+
+
+def query_shape(pk, dev):
+    """(C, Q, groups) of a key's query evaluations and multiopen: the
+    prover's committed coefficient tables (advice, fixed, sigma, z, the
+    lookups' three and the quotient pieces), its query rotations and the
+    multiopen's point groups' sizes in their order (first appearance)."""
+    from taiga_tpu_torch.plonk.prover import get_pipeline
+    from taiga_tpu_torch.plonk.protocol import NUM_H_PIECES, num_chunks
+
+    vk, cs = pk.vk, pk.vk.cs
+    C = (cs.num_advice + cs.num_fixed + len(vk.perm_cols) + num_chunks(vk.perm_cols)
+         + 3 * len(cs.lookups) + NUM_H_PIECES)
+    groups: dict[int, int] = {}
+    for _, _, rot in get_pipeline(pk, dev).queries:
+        groups[rot % vk.n] = groups.get(rot % vk.n, 0) + 1
+    return C, len(groups), tuple(groups.values())
+
+
+def poly_bound(kernel: str, B: int, n: int, C: int = 0, Q: int = 0, G: int = 0,
+               shared: bool = False):
+    """K12-K14's bound: the inputs read once and the output written once
+    (64 B an element), against the products the function needs: K12 B Q C n
+    and each point's n - 1 powers; K13 B C n; K14 two a position (a_j p^j
+    and the scale) and each distinct point's and inverse's n powers."""
+    fe = 64
+    if kernel == "eval_polys":
+        return bound_ms(fe * (B * C * n + B * Q + B * Q * C),
+                        MM_IMADS * (B * Q * C * n + B * Q * (n - 1)))
+    if kernel == "linear_combo":
+        return bound_ms(fe * (B * C * n + (C if shared else B * C) + B * n),
+                        MM_IMADS * B * C * n)
+    R, P = B * G, 1 if shared else B * G
+    return bound_ms(fe * (2 * R * n + 2 * P), MM_IMADS * (2 * R * n + 2 * P * n))
+
+
+def phase_poly(pk, gen, dev):
+    """K12-K14 (eval_polys_lm, linear_combo_lm, synthetic_div_lm,
+    csrc/poly.cu) against their plain versions (ops/poly.py's *_plain) bit
+    for bit on every element, with 0, 1 and p - 1 among the coefficients,
+    points and weights, constant rows of each, and a point_inv that is not
+    the point's inverse: off the path's shapes (POLY_SHAPES: the tiles'
+    edges, more than 8 points, a shared point or weights read through a
+    stride of 0), then at the main path's calls: a proof's and a batch of
+    BATCH's query evaluations (the compliance circuit's C tables at its Q
+    rotations, n = 2^K), the multiopen's (the widest point group's weighted
+    sum, the G groups' division, their weighted sum and the x3
+    evaluation) at B = 1 and BATCH, and a trivial resource logic's query
+    evaluations at k = 12, each timed (profiler device time of the kernel's
+    own launches, and of the whole call with its powers tables on K9)
+    beside its plain version's time and its bound."""
+    import torch
+    from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L
+
+    spec = L.FP
+    consts = [torch.as_tensor(L.int_to_limbs(v), device=dev) for v in (0, spec.r,
+                                                                       spec.modulus - 1)]
+    err = 0
+
+    def elems(*shape):  # random, 0 / 1 / p - 1 first, and constant rows where there are four
+        x = rows_fe(gen, shape, spec, dev)
+        if len(shape) >= 2:
+            rows = x.view(-1, shape[-1], 16)
+            for r, c in zip(range(1, rows.shape[0]), consts if rows.shape[0] >= 4 else ()):
+                rows[r] = c
+        return x
+
+    def call(kernel, n, B=1, C=1, Q=1, G=1, shared=False):
+        if kernel == "eval_polys":
+            a, x = elems(B, C, n), elems(Q) if shared else elems(B, Q)
+            return lambda: FK.eval_polys_lm(a, x)
+        if kernel == "linear_combo":
+            a, w = elems(B, C, n), elems(C) if shared else elems(B, C)
+            return lambda: FK.linear_combo_lm(a, w)
+        a = elems(B, G, n)
+        p, pinv = (elems(4)[3] if shared else elems(B, G) for _ in range(2))
+        return lambda: FK.synthetic_div_lm(a, p, pinv)
+
+    def held(kernel, what, fn):
+        nonlocal err
+        got = fn()
+        with FK.plain_versions():
+            want, ms = once_ms(fn)
+        err = max(err, compare(f"{kernel}[{what}]", (got,), (want,)))
+        return ms
+
+    t0 = time.perf_counter()
+    for kernel, what, n, kw in POLY_SHAPES:
+        held(kernel, what, call(kernel, n, **kw))
+    wide = FK.LINEAR_COMBO_MAX_C + 1
+    refused = (  # no coefficient; more columns than K13's shared memory holds weights for
+        lambda: FK.eval_polys_lm(elems(1, 2, 1)[:, :, :0], elems(1, 1)),
+        lambda: FK.linear_combo_lm(torch.zeros((1, wide, 1, 16), dtype=torch.int32, device=dev),
+                                   elems(1, 1).expand(1, wide, 16)))
+    for fn in refused:
+        try:
+            fn()
+        except ValueError:
+            continue
+        raise AssertionError("a K12 / K13 call the kernels do not take was not refused")
+    log(f"K12-K14 equal to their plain versions off the path's shapes "
+        f"({', '.join(f'{k} {w}' for k, w, _, _ in POLY_SHAPES)}); refusals raised "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    C, Q, groups = query_shape(pk, dev)
+    G = len(groups)
+    # (kernel, what, n, sizes); the kernels line's row is each kernel's first
+    # call at B = 1, its batch_ keys the same call at B = BATCH
+    path = []
+    for B in (1, BATCH):
+        path += [("eval_polys", "query evals", N, dict(B=B, C=C, Q=Q)),
+                 ("linear_combo", "widest group", N, dict(B=B, C=max(groups))),
+                 ("synthetic_div", "groups", N, dict(B=B, G=G)),
+                 ("linear_combo", "groups", N, dict(B=B, C=G)),
+                 ("eval_polys", "x3", N, dict(B=B, C=G, Q=1))]
+    path.append(("eval_polys", f"resource logic k={RL_K}", 1 << RL_K,
+                 dict(B=1, C=RL_QUERY_SHAPE[0], Q=RL_QUERY_SHAPE[1])))
+    shapes: dict[str, dict] = {"eval_polys": {}, "linear_combo": {}, "synthetic_div": {}}
+    first: dict[str, str] = {}
+    for kernel, what, n, kw in path:
+        fn = call(kernel, n, **kw)
+        plain = held(kernel, what, fn)
+        wrapper = getattr(FK, f"{kernel}_lm")
+        before = wrapper.launches
+        fn()
+        per_call = wrapper.launches - before
+        ms = per_call * kernel_ms(kernel, fn, 20, per_call)
+        best = (-1, 0.0, 0)  # the whole call's device time: a trace that lost launches is
+        for _ in range(3):   # retaken, up to three, and the fullest kept
+            per, busy, ops = device_trace(lambda: [fn() for _ in range(20)])
+            best = max(best, (len(per[kernel]), busy, ops))
+            if best[0] == 20 * per_call:
+                break
+        seen, busy, ops = best
+        bound = poly_bound(kernel, n=n, **kw)
+        key = f"{what} " + ", ".join(f"{k}={v}" for k, v in kw.items()) + f", n={n}"
+        first.setdefault(kernel, what)
+        shapes[kernel][key] = dict(ms=ms, plain_ms=plain, bound=bound, call_ms=busy / 20,
+                                   call_ops=ops / 20, call_seen=seen,
+                                   launches=per_call, what=what, B=kw["B"])
+        lost = "" if seen == 20 * per_call else f", a trace that saw {seen} of its launches"
+        log(f"{kernel:13s} {key:42s}: equal; {ms:.6f} ms a call of {per_call} launches, the "
+            f"call with its powers {busy / 20:.6f} ms in {ops / 20:.1f} device operations{lost} "
+            f"(plain {plain:.3f} ms, bound {bound[0]:.6f} ms by {bound[1]})")
+    log(f"K12-K14 at the main path's shapes: the compliance circuit's C = {C} tables at Q = {Q} "
+        f"rotations, its multiopen's {G} point groups of {'/'.join(map(str, groups))} queries")
+    out = {}
+    for kernel, by in shapes.items():
+        row, batch = (next(v for v in by.values() if v["what"] == first[kernel] and v["B"] == B)
+                      for B in (1, BATCH))
+        out[kernel] = dict(err=err, **row, batch=batch,
+                           shapes={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                                           bound_ms=v["bound"][0], bound_by=v["bound"][1],
+                                           call_ms=v["call_ms"], call_ops=v["call_ops"],
+                                           call_seen=v["call_seen"], launches=v["launches"])
+                                   for k, v in by.items()})
+    return out
+
+
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device",
@@ -1446,6 +1618,16 @@ KERNELS = [
     ("ntt", "ntt_lm", "taiga_tpu_torch/csrc/ntt.cu",
      "none: the XLA programs taiga_tpu/ops/ntt.py:120 (_ntt_fixed_jit) and :252 "
      "(_coset_scale_jit)", ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
+    # K12-K14: every proof's query evaluations and its multiopen's aggregation
+    ("eval_polys", "eval_polys_lm", "taiga_tpu_torch/csrc/poly.cu",
+     "none: the XLA program taiga_tpu/ops/poly.py:66 (eval_polys_at_points)",
+     ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
+    ("linear_combo", "linear_combo_lm", "taiga_tpu_torch/csrc/poly.cu",
+     "none: the XLA program taiga_tpu/ops/poly.py:94 (mont_linear_combo)",
+     ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
+    ("synthetic_div", "synthetic_div_lm", "taiga_tpu_torch/csrc/poly.cu",
+     "none: the XLA program taiga_tpu/ops/poly.py:77 (synthetic_div)",
+     ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
 ]
 
 
@@ -1677,7 +1859,10 @@ def phase_batch(pk, seed: int, single_proof: bytes):
     read_counts("cold lockstep batch", "batch")
     timer = StageTimer("cuda")
     zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     (_, _, warm), t_warm = batch(timer=timer)
+    peak_warm = torch.cuda.max_memory_allocated()
     launches = read_counts("warm lockstep batch", "batch")
     if warm != cold:
         raise AssertionError("a second seeded lockstep batch differs from the first")
@@ -1692,7 +1877,8 @@ def phase_batch(pk, seed: int, single_proof: bytes):
         f"BatchVerifier; a batch of one equals phase 5's proof; launches a warm batch: "
         f"K1 {launches['mont_mul']}, K2 {launches['ec_add_proj']}, ec_horner "
         f"{launches['ec_horner']}, ec_bucket_weights {launches['ec_bucket_weights']}, "
-        f"K3 family {family}, K4 {launches['tape_eval']}")
+        f"K3 family {family}, K4 {launches['tape_eval']}; peak device memory of the warm batch "
+        f"(torch.cuda.max_memory_allocated) {peak_warm / 2**30:.3f} GiB")
 
     # 7b: the pipeline over one key, then over two keys (a resource logic)
     built = [ComplianceInfo.random(r).build() for r in rngs(0, PIPE_PROOFS)]
@@ -1715,6 +1901,10 @@ def phase_batch(pk, seed: int, single_proof: bytes):
     rl_pk = get_proving_key(TrivialResourceLogicCircuit, resource_logic_k())
     log(f"trivial resource logic keygen k={resource_logic_k()} (host, native engine): "
         f"{time.perf_counter() - t0:.2f} s")
+    rl_shape = query_shape(rl_pk, "cuda")[:2]
+    if resource_logic_k() != RL_K or rl_shape != RL_QUERY_SHAPE:
+        raise AssertionError(f"the trivial resource logic's (C, Q) at k={resource_logic_k()} is "
+                             f"{rl_shape}: phase_poly held K12 at {RL_QUERY_SHAPE}, k={RL_K}")
     rl = trivial_circuits(random.Random(seed), RL_PIPE + RL_BATCH)
     rl_insts = [c.get_public_inputs() for c in rl[:RL_PIPE]]
     jobs = [(pk, circuits[:BATCH], cinsts[:BATCH]), (rl_pk, rl[:RL_PIPE], rl_insts)]
@@ -3111,7 +3301,7 @@ def main(argv=None) -> int:
                             batch_bound_ms=b["bound"][0], batch_bound_by=b["bound"][1])
         if name == "mont_inv":
             rows[-1].update(chain_stages=INV_STAGES)
-        if "shapes" in r:  # K11 at each of the main path's calls
+        if "shapes" in r:  # K11-K14 at each of the main path's calls
             rows[-1].update(shapes=r["shapes"])
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 // 255-bit prime-field and Pasta-curve arithmetic shared by every kernel of
 // taiga_tpu_torch (K1 mont_mul, K2/K3 ec_add_proj[_sel], K4 tape_eval, K5
 // ec_fold_shared, K6/K7 ec_add[_select]; csrc/ec_group.cuh builds the
-// thread-group point add on it).
+// thread-group point add on it), and the element-major row loads and
+// stores of K8-K14 (grand_product.cu, ntt.cu, poly.cu).
 //
 // Replaces the in-kernel helpers of taiga_tpu/ops/ff_kernels.py
 // (_mm_cios, _madd, _msub, _mul15, _ec_add_proj_core). Memory layout is the
@@ -60,6 +61,66 @@ __device__ __forceinline__ void store_fe(uint32_t* base, int64_t stride, int64_t
     base[(2 * j) * stride + lane] = a.w[j] & 0xFFFFu;
     base[(2 * j + 1) * stride + lane] = a.w[j] >> 16;
   }
+}
+
+// --- element-major rows ----------------------------------------------------------
+//
+// The module-boundary layout of ops/limbs.py: an element's 16 limbs in 16
+// neighbouring 32-bit words, read and written as four 16-byte vectors (the
+// pointer 16-byte aligned); packed, its 8 words as two.
+
+__device__ __forceinline__ Fe load_limbs(const uint32_t* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    const uint4 v = q[k];
+    r.w[2 * k] = v.x | (v.y << 16);
+    r.w[2 * k + 1] = v.z | (v.w << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void store_limbs(uint32_t* p, const Fe& a) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; k++)
+    q[k] = make_uint4(a.w[2 * k] & 0xFFFFu, a.w[2 * k] >> 16, a.w[2 * k + 1] & 0xFFFFu,
+                      a.w[2 * k + 1] >> 16);
+}
+
+__device__ __forceinline__ Fe load_packed(const uint32_t* p) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  const uint4 a = q[0], b = q[1];
+  return Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
+}
+
+__device__ __forceinline__ void store_packed(uint32_t* p, const Fe& a) {
+  uint4* q = reinterpret_cast<uint4*>(p);
+  q[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
+  q[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+}
+
+__device__ __forceinline__ Fe fe_zero() {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) r.w[j] = 0;
+  return r;
+}
+
+// A warp's shuffles of a whole element (every lane takes part).
+__device__ __forceinline__ Fe shfl_up_fe(const Fe& a, int d) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) r.w[j] = __shfl_up_sync(0xFFFFFFFFu, a.w[j], d);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_xor_fe(const Fe& a, int d) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) r.w[j] = __shfl_xor_sync(0xFFFFFFFFu, a.w[j], d);
+  return r;
 }
 
 // --- field ops ------------------------------------------------------------------

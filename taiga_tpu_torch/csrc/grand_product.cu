@@ -49,55 +49,23 @@ namespace {
 using taiga::Fe;
 using taiga::FieldConsts;
 using taiga::kFields;
+using taiga::load_limbs;
+using taiga::shfl_up_fe;
+using taiga::shfl_xor_fe;
+using taiga::store_limbs;
 
 constexpr int kThreads = 128;           // threads a block of every kernel here
 constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 8;                 // K9: elements a thread scans serially
 constexpr int kTile = kThreads * kPer;  // K9: elements a block
 
-__device__ __forceinline__ Fe load_row(const uint32_t* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    const uint4 v = q[k];
-    r.w[2 * k] = v.x | (v.y << 16);
-    r.w[2 * k + 1] = v.z | (v.w << 16);
-  }
-  return r;
-}
-
-__device__ __forceinline__ void store_row(uint32_t* p, const Fe& a) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-  for (int k = 0; k < 4; k++)
-    q[k] = make_uint4(a.w[2 * k] & 0xFFFFu, a.w[2 * k] >> 16, a.w[2 * k + 1] & 0xFFFFu,
-                      a.w[2 * k + 1] >> 16);
-}
-
 // 1 in Montgomery form, 2^256 mod p: 2^256 - p (8 words from 0 - p), less
 // p until below it (p > 2^254, so at most three times).
 __device__ __forceinline__ Fe fe_one(const FieldConsts& F) {
-  Fe zero, r;
-#pragma unroll
-  for (int j = 0; j < taiga::kWords; j++) zero.w[j] = 0;
-  taiga::sub8(r, zero, F.p);
+  Fe r;
+  taiga::sub8(r, taiga::fe_zero(), F.p);
 #pragma unroll
   for (int k = 0; k < 3; k++) r = taiga::reduce_once(r, 0, F);
-  return r;
-}
-
-__device__ __forceinline__ Fe shfl_up_fe(const Fe& a, int d) {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < taiga::kWords; j++) r.w[j] = __shfl_up_sync(0xFFFFFFFFu, a.w[j], d);
-  return r;
-}
-
-__device__ __forceinline__ Fe shfl_xor_fe(const Fe& a, int d) {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < taiga::kWords; j++) r.w[j] = __shfl_xor_sync(0xFFFFFFFFu, a.w[j], d);
   return r;
 }
 
@@ -132,14 +100,14 @@ __global__ void __launch_bounds__(kThreads) k_mont_inv(const uint32_t* __restric
   taiga::sub8(e, F.p, two);  // the exponent p - 2, the same on every lane
   int top = 255;
   while (top > 0 && !((e.w[top >> 5] >> (top & 31)) & 1u)) top--;
-  const Fe x = load_row(a + lane * taiga::kLimbs);
+  const Fe x = load_limbs(a + lane * taiga::kLimbs);
   Fe r = x;  // the top bit's square-and-multiply from 1
 #pragma unroll 1
   for (int i = top - 1; i >= 0; i--) {
     r = taiga::fe_mul(r, r, F);
     if ((e.w[i >> 5] >> (i & 31)) & 1u) r = taiga::fe_mul(r, x, F);
   }
-  store_row(out + lane * taiga::kLimbs, r);
+  store_limbs(out + lane * taiga::kLimbs, r);
 }
 
 // ---------------------------------------------------------------------------
@@ -166,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_totals(ScanView v, uint32_
 #pragma unroll 1
   for (int k = 0; k < kPer; k++) {
     const int64_t i = i0 + k;
-    if (i < v.n) acc = taiga::fe_mul(acc, load_row(v.a + v.at(i) * v.a_sn + row * v.a_sr), F);
+    if (i < v.n) acc = taiga::fe_mul(acc, load_limbs(v.a + v.at(i) * v.a_sn + row * v.a_sr), F);
   }
   const Fe t = block_product(acc, warp_sum, F);
   if (threadIdx.x == 0) {
@@ -205,7 +173,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_apply(ScanView v, const ui
 #pragma unroll
   for (int k = 0; k < kPer; k++) {
     const int64_t i = i0 + k;
-    x[k] = i < v.n ? load_row(v.a + v.at(i) * v.a_sn + row * v.a_sr) : one;
+    x[k] = i < v.n ? load_limbs(v.a + v.at(i) * v.a_sn + row * v.a_sr) : one;
   }
 #pragma unroll
   for (int k = 1; k < kPer; k++) x[k] = taiga::fe_mul(x[k - 1], x[k], F);
@@ -231,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_apply(ScanView v, const ui
 #pragma unroll
   for (int k = 0; k < kPer; k++) {
     const int64_t i = i0 + k;
-    if (i < v.n) store_row(v.out + v.at(i) * v.o_sn + row * v.o_sr, taiga::fe_mul(prefix, x[k], F));
+    if (i < v.n) store_limbs(v.out + v.at(i) * v.o_sn + row * v.o_sr, taiga::fe_mul(prefix, x[k], F));
   }
 }
 
@@ -253,26 +221,26 @@ __global__ void __launch_bounds__(kThreads) k_perm_terms(
   const FieldConsts F = kFields[field];
   const int64_t bc = blockIdx.y, c = bc % C, b = bc / C;
   const int64_t j0 = c * chunk, j1 = j0 + chunk < P ? j0 + chunk : P;
-  const Fe be = load_row(beta + b * taiga::kLimbs);
+  const Fe be = load_limbs(beta + b * taiga::kLimbs);
   for (int64_t j = j0 + threadIdx.x; j < j1; j += kThreads)
-    bd[j - j0] = taiga::fe_mul(be, load_row(delta + j * taiga::kLimbs), F);
+    bd[j - j0] = taiga::fe_mul(be, load_limbs(delta + j * taiga::kLimbs), F);
   __syncthreads();
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fe ga = load_row(gamma + b * taiga::kLimbs), w = load_row(omega + i * taiga::kLimbs);
+  const Fe ga = load_limbs(gamma + b * taiga::kLimbs), w = load_limbs(omega + i * taiga::kLimbs);
   Fe pn, pd;
 #pragma unroll 1
   for (int64_t j = j0; j < j1; j++) {
-    const Fe x = load_row(cols + ((b * P + j) * n + i) * taiga::kLimbs);
+    const Fe x = load_limbs(cols + ((b * P + j) * n + i) * taiga::kLimbs);
     const Fe tn = taiga::fe_add(taiga::fe_add(x, taiga::fe_mul(bd[j - j0], w, F), F), ga, F);
-    const Fe s = load_row(sigma + (j * n + i) * taiga::kLimbs);
+    const Fe s = load_limbs(sigma + (j * n + i) * taiga::kLimbs);
     const Fe td = taiga::fe_add(taiga::fe_add(x, taiga::fe_mul(be, s, F), F), ga, F);
     pn = j == j0 ? tn : taiga::fe_mul(pn, tn, F);
     pd = j == j0 ? td : taiga::fe_mul(pd, td, F);
   }
   const int64_t o = (bc * n + i) * taiga::kLimbs;
-  store_row(num + o, pn);
-  store_row(den + o, pd);
+  store_limbs(num + o, pn);
+  store_limbs(den + o, pd);
 }
 
 // num, den (B, L, n, 16) from a, s, ap, sp (B, L, n, 16), beta and gamma
@@ -287,11 +255,11 @@ __global__ void __launch_bounds__(kThreads) k_lookup_terms(
   if (idx >= B * per_proof) return;
   const FieldConsts F = kFields[field];
   const int64_t b = idx / per_proof, o = idx * taiga::kLimbs;
-  const Fe be = load_row(beta + b * taiga::kLimbs), ga = load_row(gamma + b * taiga::kLimbs);
-  store_row(num + o, taiga::fe_mul(taiga::fe_add(load_row(a + o), be, F),
-                                   taiga::fe_add(load_row(s + o), ga, F), F));
-  store_row(den + o, taiga::fe_mul(taiga::fe_add(load_row(ap + o), be, F),
-                                   taiga::fe_add(load_row(sp + o), ga, F), F));
+  const Fe be = load_limbs(beta + b * taiga::kLimbs), ga = load_limbs(gamma + b * taiga::kLimbs);
+  store_limbs(num + o, taiga::fe_mul(taiga::fe_add(load_limbs(a + o), be, F),
+                                   taiga::fe_add(load_limbs(s + o), ga, F), F));
+  store_limbs(den + o, taiga::fe_mul(taiga::fe_add(load_limbs(ap + o), be, F),
+                                   taiga::fe_add(load_limbs(sp + o), ga, F), F));
 }
 
 int64_t blocks_for(int64_t lanes) { return (lanes + kThreads - 1) / kThreads; }

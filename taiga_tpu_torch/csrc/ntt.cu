@@ -56,6 +56,10 @@ using taiga::Fe;
 using taiga::FieldConsts;
 using taiga::kFields;
 using taiga::kWords;
+using taiga::load_limbs;
+using taiga::load_packed;
+using taiga::store_limbs;
+using taiga::store_packed;
 
 constexpr int kThreads = 128;            // threads a block
 constexpr int kMaxLog = 10;              // the longest line a block holds: 2^10 elements
@@ -78,38 +82,6 @@ struct Pass {
   int post_step;               // 0: one scale for every position; 1: one a position
 };
 
-__device__ __forceinline__ Fe load_limbs(const uint32_t* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  Fe r;
-#pragma unroll
-  for (int k = 0; k < 4; k++) {
-    const uint4 v = q[k];
-    r.w[2 * k] = v.x | (v.y << 16);
-    r.w[2 * k + 1] = v.z | (v.w << 16);
-  }
-  return r;
-}
-
-__device__ __forceinline__ void store_limbs(uint32_t* p, const Fe& a) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-#pragma unroll
-  for (int k = 0; k < 4; k++)
-    q[k] = make_uint4(a.w[2 * k] & 0xFFFFu, a.w[2 * k] >> 16, a.w[2 * k + 1] & 0xFFFFu,
-                      a.w[2 * k + 1] >> 16);
-}
-
-__device__ __forceinline__ Fe load_packed(const uint32_t* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  const uint4 a = q[0], b = q[1];
-  return Fe{{a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w}};
-}
-
-__device__ __forceinline__ void store_packed(uint32_t* p, const Fe& a) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-  q[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
-  q[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
-}
-
 // A block's element i in shared memory: plane w (of 8) at w Ep + i + i / 32.
 __device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
 
@@ -131,10 +103,7 @@ __device__ __forceinline__ void s_put(uint32_t* s, int ep, int i, const Fe& a) {
 __device__ __forceinline__ Fe omega_pow(const uint32_t* tw, int64_t e, int64_t half,
                                         const FieldConsts& F) {
   if (e < half) return load_packed(tw + e * kWords);
-  Fe zero;
-#pragma unroll
-  for (int w = 0; w < kWords; w++) zero.w[w] = 0;
-  return taiga::fe_sub(zero, load_packed(tw + (e - half) * kWords), F);
+  return taiga::fe_sub(taiga::fe_zero(), load_packed(tw + (e - half) * kWords), F);
 }
 
 template <bool kInPacked, bool kOutPacked>

@@ -1,0 +1,352 @@
+// The polynomial programs of the query evaluations and the multiopen: K12
+// eval_polys, K13 linear_combo and K14 synthetic_div.
+//
+// Replace no Pallas kernel: the JAX package compiles each into one XLA
+// program, taiga_tpu/ops/poly.py::eval_polys_at_points (:66),
+// ::mont_linear_combo (:94) and ::synthetic_div (:77). Run eagerly, each
+// field product there is a 16-step CIOS over a float64 accumulator of the
+// whole broadcast shape and each sum log2(n) rounds of halving adds: the
+// query evaluations of one k = 13 compliance proof broadcast its 6 points
+// against 90 coefficient tables, (1, 6, 90, 2^13) products, about 1 GB of
+// accumulator a proof and a thousand device operations. Here each is one
+// or two launches a call with nothing of that size in device memory.
+//
+// Layout: element-major (..., 16) rows, the 16 16-bit limbs of an element
+// in 16 neighbouring 32-bit words (the module-boundary layout of
+// ops/limbs.py), read and written as four 16-byte vectors through the
+// strides the wrapper passes, so an expanded or moved axis is read in
+// place. Every value is a canonical Montgomery element, and field products
+// and sums are exact, so any order of reduction gives the reference's
+// limbs bit for bit.
+//
+// K12 eval_polys (k_eval_polys, k_eval_reduce): v[b, q, c] = sum_i
+// coeffs[b, c, i] x[b, q]^i from the powers table x^i (B, Q, n), which the
+// wrapper takes from ops/poly.py::powers (K9). A block takes a tile of
+// kTile positions of one (b, c) row: each thread loads a coefficient once
+// and multiplies it by the point's power for up to kMaxQ points at a time,
+// summing into one register accumulator a point; the block then sums each
+// accumulator (a warp butterfly, then the warps through shared memory) and
+// writes its tile's partial sums, which a second launch adds over the
+// tiles (one launch when a row is one tile). Bound: operations, B Q C n
+// products of 264 32-bit multiply-adds against 64 B an element read once
+// (the powers are Q rows a proof, read from L2 by every row c).
+//
+// K13 linear_combo (k_linear_combo): out[b, i] = sum_c w[b, c] stack[b, c,
+// i], one thread an output element looping over the C columns, the
+// block's C weights in shared memory. Bound: bytes, each stack element
+// read once (and operations close behind: one product an element read).
+//
+// K14 synthetic_div (k_div_totals, k_div_apply): q_i = pinv^(i+1) sum_{j>i}
+// a_j p^j of each row, from the powers tables p^j and pinv^j (n + 1
+// entries a row, or one row for every row: a row stride of 0), which the
+// wrapper takes from powers (K9). The exclusive suffix sum is K9's scan
+// with the modular add in place of the product, over the row read
+// backwards: a block takes a tile of kTile positions, a thread a run of
+// kPer; pass 1 (only when a row spans several tiles) writes each tile's
+// sum of a_j p^j; pass 2 adds the later tiles' sums into its carry, forms
+// the run's exclusive sums serially in registers, scans the runs' totals
+// across the block (warp shuffles, then the warps' totals through shared
+// memory) and stores (carry + prefix) pinv^(i+1). It scales by the given
+// pinv's powers, so it equals the plain version for any pinv, not only p^-1.
+// Bound: operations, two products an element (and the powers').
+
+#include "field.cuh"
+
+namespace {
+
+using taiga::Fe;
+using taiga::FieldConsts;
+using taiga::kFields;
+using taiga::kLimbs;
+using taiga::kWords;
+using taiga::fe_zero;
+using taiga::load_limbs;
+using taiga::load_packed;
+using taiga::shfl_up_fe;
+using taiga::shfl_xor_fe;
+using taiga::store_limbs;
+using taiga::store_packed;
+
+constexpr int kThreads = 128;           // threads a block of K12 and K14
+constexpr int kWarps = kThreads / 32;
+constexpr int kPer = 8;                 // positions a thread takes
+constexpr int kTile = kThreads * kPer;  // positions of a row a block takes
+constexpr int kMaxQ = 8;                // K12: points a pass over the tile accumulates
+constexpr int kComboThreads = 64;       // K13: threads a block (n / 64 blocks a proof)
+constexpr int64_t kMaxComboC = 48 * 1024 / sizeof(Fe);  // K13: columns, 48 KB of weights
+constexpr int64_t kMaxGrid = 0x7FFFFFFF;
+
+// The sum of x over the warp, on every lane.
+__device__ __forceinline__ Fe warp_sum(Fe x, const FieldConsts& F) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) x = taiga::fe_add(x, shfl_xor_fe(x, d), F);
+  return x;
+}
+
+// The sum of every thread's x over the block, on every thread.
+__device__ Fe block_sum(Fe x, Fe* warp_part, const FieldConsts& F) {
+  x = warp_sum(x, F);
+  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = x;
+  __syncthreads();
+  Fe r = warp_part[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; w++) r = taiga::fe_add(r, warp_part[w], F);
+  __syncthreads();  // warp_part may be reused
+  return r;
+}
+
+int64_t blocks_for(int64_t lanes, int threads) { return (lanes + threads - 1) / threads; }
+
+// ---------------------------------------------------------------------------
+// K12
+// ---------------------------------------------------------------------------
+
+struct EvalArgs {
+  const uint32_t* coeffs;  // element (b, c, i) at b cb + c cc + i ci words
+  const uint32_t* pw;      // x[b, q]^i at b pb + q pq + i pi words
+  uint32_t* part;          // (B, C, tiles, Q) packed partial sums, when tiles > 1
+  uint32_t* out;           // (B, Q, C, 16)
+  int64_t C, Q, n, tiles;
+  int64_t cb, cc, ci, pb, pq, pi;
+};
+
+// Grid: B C tiles blocks, (b, c) = blockIdx.x / tiles, the tile its rest.
+__global__ void __launch_bounds__(kThreads) k_eval_polys(EvalArgs a, int field) {
+  __shared__ Fe part[kWarps][kMaxQ];
+  const FieldConsts F = kFields[field];
+  const int64_t bc = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
+  const int64_t b = bc / a.C, c = bc % a.C;
+  const uint32_t* crow = a.coeffs + b * a.cb + c * a.cc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int64_t q0 = 0; q0 < a.Q; q0 += kMaxQ) {
+    const int qn = a.Q - q0 < kMaxQ ? (int)(a.Q - q0) : kMaxQ;  // the same on every thread
+    const uint32_t* prow = a.pw + b * a.pb + q0 * a.pq;
+    Fe acc[kMaxQ];
+#pragma unroll
+    for (int q = 0; q < kMaxQ; q++) acc[q] = fe_zero();
+#pragma unroll 1
+    for (int k = 0; k < kPer; k++) {  // neighbouring threads on neighbouring positions
+      const int64_t i = tile * kTile + k * kThreads + threadIdx.x;
+      if (i >= a.n) break;
+      const Fe x = load_limbs(crow + i * a.ci);
+#pragma unroll
+      for (int q = 0; q < kMaxQ; q++)
+        if (q < qn)
+          acc[q] = taiga::fe_add(
+              acc[q], taiga::fe_mul(x, load_limbs(prow + q * a.pq + i * a.pi), F), F);
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxQ; q++) {
+      if (q < qn) {
+        const Fe s = warp_sum(acc[q], F);
+        if (lane == 0) part[warp][q] = s;
+      }
+    }
+    __syncthreads();
+    if (threadIdx.x < qn) {
+      const int q = threadIdx.x;
+      Fe s = part[0][q];
+#pragma unroll
+      for (int w = 1; w < kWarps; w++) s = taiga::fe_add(s, part[w][q], F);
+      if (a.tiles == 1)
+        store_limbs(a.out + ((b * a.Q + q0 + q) * a.C + c) * kLimbs, s);
+      else
+        store_packed(a.part + ((bc * a.tiles + tile) * a.Q + q0 + q) * kWords, s);
+    }
+    __syncthreads();  // part is reused by the next points
+  }
+}
+
+// out[b, q, c] = the sum over the tiles of part[b, c, tile, q], one thread
+// an output element.
+__global__ void __launch_bounds__(kThreads) k_eval_reduce(EvalArgs a, int64_t B, int field) {
+  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= B * a.Q * a.C) return;
+  const FieldConsts F = kFields[field];
+  const int64_t c = o % a.C, q = (o / a.C) % a.Q, b = o / (a.C * a.Q);
+  const uint32_t* src = a.part + ((b * a.C + c) * a.tiles * a.Q + q) * kWords;
+  Fe s = load_packed(src);
+#pragma unroll 1
+  for (int64_t t = 1; t < a.tiles; t++) s = taiga::fe_add(s, load_packed(src + t * a.Q * kWords), F);
+  store_limbs(a.out + o * kLimbs, s);
+}
+
+// ---------------------------------------------------------------------------
+// K13
+// ---------------------------------------------------------------------------
+
+// Grid: B row_blocks blocks, b = blockIdx.x / row_blocks; ws, in dynamic
+// shared memory, holds the proof's C weights.
+__global__ void __launch_bounds__(kComboThreads) k_linear_combo(
+    const uint32_t* __restrict__ stack, int64_t sb, int64_t sc, int64_t si,
+    const uint32_t* __restrict__ w, int64_t wb, int64_t wc, uint32_t* __restrict__ out,
+    int64_t C, int64_t n, int64_t row_blocks, int field) {
+  extern __shared__ Fe ws[];
+  const FieldConsts F = kFields[field];
+  const int64_t b = blockIdx.x / row_blocks;
+  for (int64_t c = threadIdx.x; c < C; c += kComboThreads) ws[c] = load_limbs(w + b * wb + c * wc);
+  __syncthreads();
+  const int64_t i = (blockIdx.x % row_blocks) * kComboThreads + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t* src = stack + b * sb + i * si;
+  Fe acc = fe_zero();
+#pragma unroll 1
+  for (int64_t c = 0; c < C; c++)
+    acc = taiga::fe_add(acc, taiga::fe_mul(ws[c], load_limbs(src + c * sc), F), F);
+  store_limbs(out + (b * n + i) * kLimbs, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K14
+// ---------------------------------------------------------------------------
+
+struct DivView {
+  const uint32_t* a;    // a_j of row r at a + r ar + j ae words
+  const uint32_t* pw;   // p^j at pw + r pr + j pe (pr = 0: one point for every row)
+  const uint32_t* ipw;  // pinv^j at ipw + r ir + j ie
+  uint32_t* out;        // (R, n, 16)
+  int64_t n, tiles, ar, ae, pr, pe, ir, ie;
+
+  // a_j p^j at scan position k: the scan reads the row backwards, j = n - 1 - k
+  __device__ __forceinline__ Fe term(int64_t r, int64_t k, const FieldConsts& F) const {
+    const int64_t j = n - 1 - k;
+    return taiga::fe_mul(load_limbs(a + r * ar + j * ae), load_limbs(pw + r * pr + j * pe), F);
+  }
+};
+
+// Pass 1: the sum of each tile's terms: totals[(row, tile)], packed.
+__global__ void __launch_bounds__(kThreads) k_div_totals(DivView v, uint32_t* totals, int field) {
+  __shared__ Fe warp_part[kWarps];
+  const FieldConsts F = kFields[field];
+  const int64_t row = blockIdx.x / v.tiles, tile = blockIdx.x % v.tiles;
+  const int64_t k0 = tile * kTile + (int64_t)threadIdx.x * kPer;
+  Fe acc = fe_zero();
+#pragma unroll 1
+  for (int k = 0; k < kPer; k++)
+    if (k0 + k < v.n) acc = taiga::fe_add(acc, v.term(row, k0 + k, F), F);
+  const Fe t = block_sum(acc, warp_part, F);
+  if (threadIdx.x == 0) store_packed(totals + (row * v.tiles + tile) * kWords, t);
+}
+
+// Pass 2: each position's exclusive sum of the terms before it in scan
+// order (the row's later terms), plus the earlier tiles' totals (null
+// when a row is one tile), times pinv^(j+1).
+__global__ void __launch_bounds__(kThreads) k_div_apply(DivView v, const uint32_t* totals,
+                                                        int field) {
+  __shared__ Fe warp_part[kWarps];
+  const FieldConsts F = kFields[field];
+  const int64_t row = blockIdx.x / v.tiles, tile = blockIdx.x % v.tiles;
+
+  Fe carry = fe_zero();
+  if (tile > 0) {  // the sum of totals[row, 0 .. tile - 1]
+    Fe acc = fe_zero();
+#pragma unroll 1
+    for (int64_t t = threadIdx.x; t < tile; t += kThreads)
+      acc = taiga::fe_add(acc, load_packed(totals + (row * v.tiles + t) * kWords), F);
+    carry = block_sum(acc, warp_part, F);
+  }
+
+  // this thread's run: x[k] becomes the sum of the run's terms before k
+  const int64_t k0 = tile * kTile + (int64_t)threadIdx.x * kPer;
+  Fe x[kPer];
+  Fe run = fe_zero();
+#pragma unroll
+  for (int k = 0; k < kPer; k++) {
+    x[k] = run;
+    if (k0 + k < v.n) run = taiga::fe_add(run, v.term(row, k0 + k, F), F);
+  }
+
+  // the runs' totals scanned across the warp (inclusive), then exclusive
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Fe incl = run;
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+    const Fe up = shfl_up_fe(incl, d);
+    if (lane >= d) incl = taiga::fe_add(up, incl, F);
+  }
+  Fe excl = shfl_up_fe(incl, 1);
+  if (lane == 0) excl = fe_zero();
+  if (lane == 31) warp_part[warp] = incl;
+  __syncthreads();
+  Fe prefix = carry;
+#pragma unroll 1
+  for (int w = 0; w < warp; w++) prefix = taiga::fe_add(prefix, warp_part[w], F);
+  prefix = taiga::fe_add(prefix, excl, F);
+
+#pragma unroll
+  for (int k = 0; k < kPer; k++) {
+    const int64_t kk = k0 + k;
+    if (kk < v.n) {
+      const int64_t j = v.n - 1 - kk;
+      const Fe s = taiga::fe_add(prefix, x[k], F);
+      store_limbs(v.out + (row * v.n + j) * kLimbs,
+                  taiga::fe_mul(s, load_limbs(v.ipw + row * v.ir + (j + 1) * v.ie), F));
+    }
+  }
+}
+
+}  // namespace
+
+// Tiles of a row of n positions (K12 and K14): their scratch holds one
+// entry a tile, used only when a row has more than one tile.
+extern "C" int taiga_poly_tiles(int64_t n) { return (int)((n + kTile - 1) / kTile); }
+
+// out (B, Q, C, 16) = sum_i coeffs[b, c, i] pw[b, q, i]; coeffs element (b,
+// c, i) at coeffs + b cb + c cc + i ci words, pw's (b, q, i) at pw + b pb +
+// q pq + i pi (strides multiples of 4, pointers 16-byte aligned); part
+// (B, C, tiles, Q, 8) words of scratch when tiles > 1.
+extern "C" int taiga_eval_polys(const uint32_t* coeffs, int64_t cb, int64_t cc, int64_t ci,
+                                const uint32_t* pw, int64_t pb, int64_t pq, int64_t pi,
+                                uint32_t* part, uint32_t* out, int64_t B, int64_t C, int64_t Q,
+                                int64_t n, int field, cudaStream_t stream) {
+  if (B <= 0 || C <= 0 || Q <= 0) return 0;
+  if (n <= 0 || field < 0 || field > 1) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  if (B * C * tiles > kMaxGrid || (tiles > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
+  const EvalArgs a{coeffs, pw, part, out, C, Q, n, tiles, cb, cc, ci, pb, pq, pi};
+  k_eval_polys<<<(unsigned)(B * C * tiles), kThreads, 0, stream>>>(a, field);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess || tiles == 1) return (int)rc;
+  k_eval_reduce<<<(unsigned)blocks_for(B * Q * C, kThreads), kThreads, 0, stream>>>(a, B, field);
+  return (int)cudaGetLastError();
+}
+
+// out (B, n, 16) = sum_c w[b, c] stack[b, c, :]; stack element (b, c, i) at
+// stack + b sb + c sc + i si words, weight (b, c) at w + b wb + c wc.
+extern "C" int taiga_linear_combo(const uint32_t* stack, int64_t sb, int64_t sc, int64_t si,
+                                  const uint32_t* w, int64_t wb, int64_t wc, uint32_t* out,
+                                  int64_t B, int64_t C, int64_t n, int field,
+                                  cudaStream_t stream) {
+  if (B <= 0 || n <= 0) return 0;
+  if (C <= 0 || C > kMaxComboC || field < 0 || field > 1)
+    return (int)cudaErrorInvalidValue;
+  const int64_t row_blocks = blocks_for(n, kComboThreads);
+  if (B * row_blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+  k_linear_combo<<<(unsigned)(B * row_blocks), kComboThreads, (size_t)C * sizeof(Fe), stream>>>(
+      stack, sb, sc, si, w, wb, wc, out, C, n, row_blocks, field);
+  return (int)cudaGetLastError();
+}
+
+// out (R, n, 16): q_j = pinv^(j+1) sum_{i>j} a_i p^i of each row; a's (r,
+// i) at a + r ar + i ae words, p^i at pw + r pr + i pe and pinv^i at ipw +
+// r ir + i ie (i <= n; pr, ir 0 for a point shared by every row); totals
+// (R, tiles, 8) words of scratch when tiles > 1.
+extern "C" int taiga_synthetic_div(const uint32_t* a, int64_t ar, int64_t ae, const uint32_t* pw,
+                                   int64_t pr, int64_t pe, const uint32_t* ipw, int64_t ir,
+                                   int64_t ie, uint32_t* out, uint32_t* totals, int64_t n,
+                                   int64_t R, int field, cudaStream_t stream) {
+  if (n <= 0 || R <= 0) return 0;
+  if (field < 0 || field > 1) return (int)cudaErrorInvalidValue;
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  if (R * tiles > kMaxGrid || (tiles > 1 && totals == nullptr)) return (int)cudaErrorInvalidValue;
+  const DivView v{a, pw, ipw, out, n, tiles, ar, ae, pr, pe, ir, ie};
+  if (tiles > 1) {
+    k_div_totals<<<(unsigned)(R * tiles), kThreads, 0, stream>>>(v, totals, field);
+    const cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  k_div_apply<<<(unsigned)(R * tiles), kThreads, 0, stream>>>(v, tiles > 1 ? totals : nullptr,
+                                                               field);
+  return (int)cudaGetLastError();
+}

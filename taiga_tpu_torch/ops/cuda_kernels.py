@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac", "poseidon",
-           "grand_product", "ntt")
+           "grand_product", "ntt", "poly")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FIELD_IDS = {"fp": 0, "fq": 1}
 
@@ -115,6 +115,15 @@ _ARGTYPES = {
     "ntt": {
         "taiga_ntt": [_VP, _I64, _I64, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _I64, ctypes.c_int,
                       ctypes.c_int, _VP],
+    },
+    "poly": {
+        "taiga_poly_tiles": [_I64],
+        "taiga_eval_polys": [_VP, _I64, _I64, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _I64, _I64,
+                             _I64, _I64, ctypes.c_int, _VP],
+        "taiga_linear_combo": [_VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64,
+                               ctypes.c_int, _VP],
+        "taiga_synthetic_div": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _I64,
+                                _I64, ctypes.c_int, _VP],
     },
     "poseidon": {
         "taiga_poseidon_set_consts": [_VP] * 6,

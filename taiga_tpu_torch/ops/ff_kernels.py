@@ -23,9 +23,13 @@ warp's lanes read neighbouring words.
   K10 perm_terms_lm     the grand products' numerators csrc/grand_product.cu
       lookup_terms_lm   and denominators               csrc/grand_product.cu
   K11 ntt_lm            the NTT family, two passes     csrc/ntt.cu
+  K12 eval_polys_lm     C polynomials at Q points      csrc/poly.cu
+  K13 linear_combo_lm   sum_c w_c * stack_c            csrc/poly.cu
+  K14 synthetic_div_lm  (A(X) - A(p)) / (X - p)        csrc/poly.cu
   (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu;
-  K11's plain version is ops/ntt.py::ntt_plain.)
-  K8-K11 take element-major (..., 16) rows, the layout of ops/limbs.py;
+  K11's plain version is ops/ntt.py::ntt_plain, K12-K14's are
+  ops/poly.py::eval_polys_plain, linear_combo_plain, synthetic_div_plain.)
+  K8-K14 take element-major (..., 16) rows, the layout of ops/limbs.py;
   mont_mul_rows runs K1 on such rows.
 
 Dispatch is by the tensors' device: on the CPU a wrapper runs the plain
@@ -56,7 +60,7 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K11, ec_seg_rounds, ec_horner,
+    """Within this block every wrapper (K1-K14, ec_seg_rounds, ec_horner,
     ec_bucket_weights, ec_ladder, ec_double, ec_add_tree, and
     poseidon_kernel's permute_batch and hash_n_batch) runs its plain
     version, on any device. Used to hold
@@ -702,6 +706,7 @@ def lookup_terms_lm(a, s, ap, sp, beta, gamma):
     return outs
 
 
+LINEAR_COMBO_MAX_C = 1536  # the columns K13 takes: 48 KB of weights (csrc/poly.cu kMaxComboC)
 NTT_K_MAX = 18  # the largest domain K11 takes, 2^18: two passes of 2^9 (csrc/ntt.cu)
 NTT_ONE_PASS_K = 10  # K11 runs k <= 10 in one launch, a larger k in two (csrc/ntt.cu kMaxLog)
 
@@ -745,6 +750,125 @@ def ntt_lm(x, k: int, field: str = "fp", inverse: bool = False, coset: int | Non
                           CK.FIELD_IDS[field], CK.stream_ptr(x.device)), "ntt")
     ntt_lm.launches += launches
     return out.view(x.shape)
+
+
+def _lead_rows(t: torch.Tensor, lead: tuple, tail: tuple) -> torch.Tensor:
+    """t broadcast to lead + tail and viewed as (prod(lead),) + tail rows
+    the kernels read through their strides (expanded axes in place), or a
+    contiguous copy where the elements are not 16-byte aligned."""
+    v = t.expand(lead + tail).reshape((math.prod(lead),) + tail)
+    return v if _aligned_rows(v) else v.contiguous()
+
+
+def _check_poly_rows(name: str, t: torch.Tensor, ndim: int):
+    if t.dim() < ndim:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {ndim} or more axes")
+    check_rows(name, t, *t.shape[:-1], NLIMBS)
+
+
+def eval_polys_lm(coeffs, points, field: str = "fp"):
+    """K12: C polynomials at Q points, coeffs (..., C, n, 16) and points
+    (..., Q, 16) Montgomery -> (..., Q, C, 16), the leading axes broadcast
+    (a batch of proofs pairs each stack with its points). The powers table
+    x^i (..., Q, n, 16) comes from poly.powers (K9); then one launch, or two
+    when a row is longer than a block's tile (the tiles' partial sums, then
+    their sum). Any strides: an expanded axis is read in place."""
+    from . import poly as PL  # ops/poly.py holds the plain version and powers
+
+    _check_poly_rows("coeffs", coeffs, 3)
+    _check_poly_rows("points", points, 2)
+    if coeffs.shape[-2] < 1:
+        raise ValueError(f"coeffs: shape {tuple(coeffs.shape)}, no coefficient")
+    if not use_kernel(coeffs, points):
+        return PL.eval_polys_plain(coeffs, points, field)
+    C, n = coeffs.shape[-3:-1]
+    Q = points.shape[-2]
+    lead = tuple(torch.broadcast_shapes(coeffs.shape[:-3], points.shape[:-2]))
+    out = torch.empty(lead + (Q, C, NLIMBS), dtype=coeffs.dtype, device=coeffs.device)
+    if out.numel() == 0:
+        return out
+    cv = _lead_rows(coeffs, lead, (C, n, NLIMBS))
+    pv = _lead_rows(PL.powers(points, n, field), lead, (Q, n, NLIMBS))
+    B = cv.shape[0]
+    so = CK.lib("poly")
+    tiles = so.taiga_poly_tiles(n)
+    part = torch.empty((B * C * tiles * Q * NLIMBS // 2,) if tiles > 1 else (0,),
+                       dtype=coeffs.dtype, device=coeffs.device)
+    CK.check(so.taiga_eval_polys(_ptr(cv), *cv.stride()[:3], _ptr(pv), *pv.stride()[:3],
+                                 _ptr(part) if tiles > 1 else None, _ptr(out), B, C, Q, n,
+                                 CK.FIELD_IDS[field], CK.stream_ptr(coeffs.device)),
+             "eval_polys")
+    eval_polys_lm.launches += 2 if tiles > 1 else 1
+    return out
+
+
+def linear_combo_lm(stack, weights, field: str = "fp"):
+    """K13: sum_c weights[c] * stack[c], stack (..., C, n, 16) and weights
+    (..., C, 16) Montgomery -> (..., n, 16), the leading axes broadcast:
+    one launch, one thread an output element looping over the C columns
+    (at most LINEAR_COMBO_MAX_C on the card). Any strides."""
+    from . import poly as PL
+
+    _check_poly_rows("stack", stack, 3)
+    _check_poly_rows("weights", weights, 2)
+    C, n = stack.shape[-3:-1]
+    if weights.shape[-2] != C or C < 1:
+        raise ValueError(f"weights: shape {tuple(weights.shape)}, expected (..., {C}, 16), "
+                         f"C >= 1")
+    if not use_kernel(stack, weights):
+        return PL.linear_combo_plain(stack, weights, field)
+    if C > LINEAR_COMBO_MAX_C:
+        raise ValueError(f"linear_combo: {C} columns, the kernel takes {LINEAR_COMBO_MAX_C}")
+    lead = tuple(torch.broadcast_shapes(stack.shape[:-3], weights.shape[:-2]))
+    out = torch.empty(lead + (n, NLIMBS), dtype=stack.dtype, device=stack.device)
+    if out.numel() == 0:
+        return out
+    sv = _lead_rows(stack, lead, (C, n, NLIMBS))
+    wv = _lead_rows(weights, lead, (C, NLIMBS))
+    CK.check(CK.lib("poly").taiga_linear_combo(
+        _ptr(sv), *sv.stride()[:3], _ptr(wv), *wv.stride()[:2], _ptr(out), sv.shape[0], C, n,
+        CK.FIELD_IDS[field], CK.stream_ptr(stack.device)), "linear_combo")
+    linear_combo_lm.launches += 1
+    return out
+
+
+def synthetic_div_lm(coeffs, point, point_inv, field: str = "fp"):
+    """K14: q_i = point_inv^(i+1) * sum_{j>i} a_j point^j of coeffs (..., n,
+    16), with point and point_inv (16,) shared or (..., 16) one a
+    polynomial (broadcast against the leading axes). It scales by the given
+    point_inv's powers, so it equals synthetic_div_plain for any point_inv.
+    The powers tables come from poly.powers (K9); then one launch, or two
+    when a row is longer than a block's tile (the tiles' sums, then the
+    scan). Any strides: a shared point's table is read through a row
+    stride of 0."""
+    from . import poly as PL
+
+    _check_poly_rows("coeffs", coeffs, 2)
+    _check_poly_rows("point", point, 1)
+    _check_poly_rows("point_inv", point_inv, 1)
+    if not use_kernel(coeffs, point, point_inv):
+        return PL.synthetic_div_plain(coeffs, point, point_inv, field)
+    n = coeffs.shape[-2]
+    lead = tuple(torch.broadcast_shapes(coeffs.shape[:-2], point.shape[:-1],
+                                        point_inv.shape[:-1]))
+    out = torch.empty(lead + (n, NLIMBS), dtype=coeffs.dtype, device=coeffs.device)
+    if out.numel() == 0:
+        return out
+    av = _lead_rows(coeffs, lead, (n, NLIMBS))
+    pv = _lead_rows(PL.powers(point, n + 1, field), lead, (n + 1, NLIMBS))
+    iv = _lead_rows(PL.powers(point_inv, n + 1, field), lead, (n + 1, NLIMBS))
+    R = av.shape[0]
+    so = CK.lib("poly")
+    tiles = so.taiga_poly_tiles(n)
+    totals = torch.empty((R * tiles * NLIMBS // 2,) if tiles > 1 else (0,), dtype=coeffs.dtype,
+                         device=coeffs.device)
+    CK.check(so.taiga_synthetic_div(_ptr(av), *av.stride()[:2], _ptr(pv), *pv.stride()[:2],
+                                    _ptr(iv), *iv.stride()[:2], _ptr(out),
+                                    _ptr(totals) if tiles > 1 else None, n, R,
+                                    CK.FIELD_IDS[field], CK.stream_ptr(coeffs.device)),
+             "synthetic_div")
+    synthetic_div_lm.launches += 2 if tiles > 1 else 1
+    return out
 
 
 def ec_add_proj_lm(x1, y1, z1, x2, y2, z2, field: str = "fq"):
@@ -1034,3 +1158,6 @@ mont_cumprod_lm.launches = 0
 perm_terms_lm.launches = 0
 lookup_terms_lm.launches = 0
 ntt_lm.launches = 0
+eval_polys_lm.launches = 0
+linear_combo_lm.launches = 0
+synthetic_div_lm.launches = 0

@@ -7,6 +7,11 @@ limb tensors over Fp. Field addition and multiplication are exact, so the
 scans here (K9, ff_kernels.mont_cumprod_lm, and Hillis-Steele doubling in
 place of the reference's associative_scan) give the reference's values bit
 for bit.
+
+The three programs of the query evaluations and the multiopen route to
+their hand kernels (ff_kernels: K12 eval_polys_lm, K13 linear_combo_lm,
+K14 synthetic_div_lm, csrc/poly.cu); their plain versions are the
+*_plain functions here.
 """
 
 from __future__ import annotations
@@ -62,20 +67,18 @@ def mont_dot(a, b, field: str = "fp"):
     return tree_sum(L.mont_mul(a, b, _spec(field)), axis=-2, field=field)
 
 
-def eval_polys_at_points(coeffs, points, field: str = "fp"):
-    """Evaluate C polynomials at Q points: coeffs (..., C, n, 16), points
-    (..., Q, 16) Montgomery -> (..., Q, C, 16) Montgomery values; the
-    leading axes (a batch of proofs) pair each stack with its points."""
+def eval_polys_plain(coeffs, points, field: str = "fp"):
+    """Plain version of K12: eval_polys_at_points as eager limb ops (the
+    powers table, one broadcast product, a halving-tree sum)."""
     n = coeffs.shape[-2]
     pw = powers(points, n, field)  # (..., Q, n, 16)
     prod = L.mont_mul(pw.unsqueeze(-3), coeffs.unsqueeze(-4), _spec(field))
     return tree_sum(prod, axis=-2, field=field)
 
 
-def synthetic_div(coeffs, point, point_inv, field: str = "fp"):
-    """q(X) = (A(X) - A(p)) / (X - p) for coeffs (..., n, 16) and a point
-    (16,) with its inverse, or one point (..., 16) per polynomial:
-    q_i = p^{-(i+1)} * sum_{j>i} a_j p^j."""
+def synthetic_div_plain(coeffs, point, point_inv, field: str = "fp"):
+    """Plain version of K14: synthetic_div as eager limb ops (two powers
+    tables, the suffix sums as a flipped Hillis-Steele scan)."""
     spec = _spec(field)
     n = coeffs.shape[-2]
     pw = powers(point, n + 1, field)  # 1..p^n
@@ -89,8 +92,29 @@ def synthetic_div(coeffs, point, point_inv, field: str = "fp"):
     return L.mont_mul(excl, ipw[..., 1 : n + 1, :], spec)
 
 
-def mont_linear_combo(coeffs_stack, weights, field: str = "fp"):
-    """sum_c weights[c] * coeffs_stack[c]: (..., C, n, 16) x (..., C, 16)
-    -> (..., n, 16)."""
+def linear_combo_plain(coeffs_stack, weights, field: str = "fp"):
+    """Plain version of K13: mont_linear_combo as one broadcast product and
+    a halving-tree sum over the columns."""
     prod = L.mont_mul(coeffs_stack, weights.unsqueeze(-2), _spec(field))
     return tree_sum(prod, axis=-3, field=field)
+
+
+def eval_polys_at_points(coeffs, points, field: str = "fp"):
+    """Evaluate C polynomials at Q points: coeffs (..., C, n, 16), points
+    (..., Q, 16) Montgomery -> (..., Q, C, 16) Montgomery values; the
+    leading axes (a batch of proofs) pair each stack with its points (K12)."""
+    return FK.eval_polys_lm(coeffs, points, field)
+
+
+def synthetic_div(coeffs, point, point_inv, field: str = "fp"):
+    """q(X) = (A(X) - A(p)) / (X - p) for coeffs (..., n, 16) and a point
+    (16,) with its inverse, or one point (..., 16) per polynomial:
+    q_i = p^{-(i+1)} * sum_{j>i} a_j p^j, scaled by the given point_inv's
+    powers (K14)."""
+    return FK.synthetic_div_lm(coeffs, point, point_inv, field)
+
+
+def mont_linear_combo(coeffs_stack, weights, field: str = "fp"):
+    """sum_c weights[c] * coeffs_stack[c]: (..., C, n, 16) x (..., C, 16)
+    -> (..., n, 16) (K13)."""
+    return FK.linear_combo_lm(coeffs_stack, weights, field)

@@ -18,6 +18,14 @@ of 8. A later kernel slice adds a row.
                   pads them, and a batch's quotient back (coset_intt,
                   (8, 1, 2^16)). A checkout before K11 runs them as plain
                   torch ops, and is timed all the same.
+  poly            the public programs of ops/poly.py at a proof's and a
+                  batch's shapes (B = 1, 8): the query evaluations
+                  (eval_polys_at_points, (B, C, 2^13) at (B, Q) points),
+                  the multiopen's weighted sum of its widest point group
+                  and of its G groups (mont_linear_combo), its division
+                  (synthetic_div, (B, G, 2^13), a point a polynomial) and
+                  its x3 evaluation ((B, G, 2^13) at one point). A
+                  checkout before K12-K14 runs them as plain torch ops.
 
 Each call is timed three ways: the stream time between two CUDA events
 after a warm-up call; under torch.profiler, its device operations (kernels,
@@ -96,11 +104,40 @@ def ntt_calls(mods, fe):
     return calls
 
 
+C_ALL, Q_ROTS = 90, 6  # the compliance circuit's committed columns and query rotations
+GROUPS = (90, 21, 8, 8, 3, 5)  # its multiopen's point groups (queries a point)
+
+
+def poly_calls(mods, fe):
+    PL = mods["PL"]
+    calls = []
+    G = len(GROUPS)
+    for B in (1, BATCH):
+        coeffs, points = fe(B, C_ALL, N), fe(B, Q_ROTS)
+        agg, w, pt, inv, x3 = fe(B, G, N), fe(B, G), fe(B, G), fe(B, G), fe(B, 1)
+        sel, wsel = fe(B, GROUPS[0], N), fe(B, GROUPS[0])
+        calls += [
+            (f"eval_polys query evals B={B}",
+             lambda c=coeffs, x=points: PL.eval_polys_at_points(c, x),
+             ("k_eval_polys", "k_eval_reduce")),
+            (f"linear_combo widest group B={B}",
+             lambda s=sel, v=wsel: PL.mont_linear_combo(s, v), ("k_linear_combo",)),
+            (f"linear_combo groups B={B}", lambda a=agg, v=w: PL.mont_linear_combo(a, v),
+             ("k_linear_combo",)),
+            (f"synthetic_div B={B}", lambda a=agg, p=pt, i=inv: PL.synthetic_div(a, p, i),
+             ("k_div_totals", "k_div_apply")),
+            (f"eval_polys x3 B={B}", lambda a=agg, x=x3: PL.eval_polys_at_points(a, x),
+             ("k_eval_polys", "k_eval_reduce")),
+        ]
+    return calls
+
+
 SLICES = {  # name: (the wrapper that marks the kernels, source, calls; a checkout
     #            without the wrapper runs the calls only if `before` is True)
     "grand_products": dict(wrapper="mont_inv_lm", source="grand_product",
                            calls=grand_product_calls, before=False),
     "ntt": dict(wrapper="ntt_lm", source="ntt", calls=ntt_calls, before=True),
+    "poly": dict(wrapper="eval_polys_lm", source="poly", calls=poly_calls, before=True),
 }
 
 
@@ -141,7 +178,7 @@ def main(argv=None) -> int:
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from taiga_tpu_torch.ops import cuda_kernels as CK, ff_kernels as FK, ntt as NT
+    from taiga_tpu_torch.ops import cuda_kernels as CK, ff_kernels as FK, ntt as NT, poly as PL
 
     if not FK.__file__.startswith(root):
         raise AssertionError(f"imported {FK.__file__}, not the checkout at {root}")
@@ -171,7 +208,7 @@ def main(argv=None) -> int:
         out[name] = res
         if not has and not sl["before"]:
             continue
-        for what, fn, syms in sl["calls"]({"FK": FK, "NT": NT}, fe):
+        for what, fn, syms in sl["calls"]({"FK": FK, "NT": NT, "PL": PL}, fe):
             r = {}
             if has:
                 if args.check:

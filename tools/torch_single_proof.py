@@ -9,7 +9,9 @@ random.Random(seed + 1), cold once, then warm `--proofs` times with a
 StageTimer. With `--batch B`, then chip_smoke.py's phase 7 lockstep batch
 (prove_compliance_batch on the statements of random.Random(seed + i), i <
 B, blinds from random.Random(seed + 1)), cold once and warm once with a
-StageTimer. With `--count-ops`, one more warm proof (and batch) runs
+StageTimer; each warm run also records the peak device memory it
+allocated (torch.cuda.max_memory_allocated, reset just before it). With
+`--count-ops`, one more warm proof (and batch) runs
 under torch.profiler, restarted at every stage mark, and counts each
 stage's device operations (kernels, copies, fills) and their device time.
 Prints one JSON object as its last line: the checkout, the card
@@ -114,15 +116,21 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _, _, proof = prove()
     t_cold = time.perf_counter() - t0
+    def peak_reset():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
     warm = []
     for _ in range(args.proofs):
         timer = StageTimer("cuda")
+        peak_reset()
         t0 = time.perf_counter()
         _, _, again = prove(timer=timer)
         total = time.perf_counter() - t0
         if again != proof:
             raise AssertionError("a warm seeded proof differs from the cold one")
-        warm.append({"total": total, "stages": dict(timer.stages)})
+        warm.append({"total": total, "stages": dict(timer.stages),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         print(f"{root}: warm proof {total:.3f} s", flush=True)
     out = {"root": root, "device": smi, "build_s": t_build, "keygen_s": t_keygen,
            "cold_s": t_cold, "warm": warm, "proof_sha256": hashlib.sha256(proof).hexdigest()}
@@ -140,10 +148,12 @@ def main(argv=None) -> int:
 
         cold_b, out["batch_cold_s"] = batch()
         timer = StageTimer("cuda")
+        peak_reset()
         warm_b, total = batch(timer=timer)
         if warm_b != cold_b:
             raise AssertionError("a warm seeded batch differs from the cold one")
-        out["batch_warm"] = {"total": total, "stages": dict(timer.stages)}
+        out["batch_warm"] = {"total": total, "stages": dict(timer.stages),
+                             "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         out["batch_sha256"] = hashlib.sha256(b"".join(cold_b)).hexdigest()
         print(f"{root}: warm batch of {args.batch} {total:.3f} s", flush=True)
         if args.count_ops:
