@@ -50,7 +50,17 @@ exit code and no result line:
      1 and p - 1 and on a moved axis, and at the main path's calls (a
      proof's iNTT of 12 columns at 2^13, the extension of a proof's and a
      batch of 8's 12 advice columns at 2^16, a batch's coset iNTT, one Fq
-     shape), timed at each (profiler);
+     shape), timed at each (profiler); the polynomial programs K12-K14
+     (csrc/poly.cu, phase_poly); and K15-K17 (phase_lookup): the lookups'
+     permuted pairs (csrc/lookup_sort.cu) at a proof's 5 and a batch's 40
+     rows of u = 8,183 on the compliance circuit's real compressed
+     columns, the same with one entry moved out of the table (ok false),
+     and random columns with heavy repeats, an all-equal column and rows
+     of 0 and p - 1; the Montgomery conversions (csrc/convert.cu) both
+     ways at a proof's (12, 8,192) and a batch's (8, 12, 8,192); the
+     MSMs' window digits at a fixed-base chunk's 8 columns, chunks padded
+     to 4, 2 and 1 columns, and keyed at the general MSMs' shapes; each
+     timed (profiler);
   5. prove one compliance (Action) proof at k = 13 on the card with seeded
      blinds, cold (recording the selected share of every K3-family launch,
      as a histogram) and then warm, with the native (host) IPA open: counts
@@ -260,6 +270,9 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "eval_polys": ("k_eval_polys", "k_eval_reduce"),
     "linear_combo": ("k_linear_combo",),
     "synthetic_div": ("k_div_totals", "k_div_apply"),
+    "permute_pairs": ("k_lookup_keys", "k_lookup_rank", "k_lookup_merge"),
+    "from_mont": ("k_from_mont",),
+    "msm_digits": ("k_msm_digits",),
 }
 
 
@@ -690,6 +703,7 @@ def phase_kernels(pk, seed: int, dev):
     res.update(phase_grand_products(pk, gen, dev))
     res.update(phase_ntt(gen, dev))
     res.update(phase_poly(pk, gen, dev))
+    res.update(phase_lookup(pk, gen, seed, dev))
     return res
 
 
@@ -1543,6 +1557,184 @@ def phase_poly(pk, gen, dev):
     return out
 
 
+LOOKUP_U = N - 9    # a k = 13 proof's usable rows: n less its 8 blinding rows and one
+LOOKUPS = 5         # the compliance circuit's lookups: K15's rows a proof
+CONVERT_COLS = 12   # K16 at a proof's advice commit: 12 columns of n coefficients
+# K17 at a fixed-base chunk's (columns, live columns): a full chunk, and chunks padded to
+# a power of two with zero columns (msm_fixed_multi's remainder)
+DIGIT_CHUNKS = ((8, 8), (4, 3), (2, 2), (1, 1))
+WINDOW_C = 8        # the MSMs' window bits (ops/msm.py::WINDOW_BITS)
+SORT_OPS = 9        # 32-bit subtractions with borrow a 256-bit key comparison needs
+
+
+def lookup_columns(pk, seed: int, dev):
+    """A compliance proof's compressed lookup columns A and S (LOOKUPS, n,
+    16), Montgomery: the seeded statement's witness (synthesized on the
+    host; the blinding rows left as the builder leaves them) through the
+    prover's lookup tapes (K4) at a random theta. The tapes come from a
+    pipeline of its own and run on the key's fixed columns, not on the
+    pipeline's static tables, so no cache that the main path's first proof
+    builds is warmed here and that proof stays cold."""
+    import torch
+    from taiga_tpu_torch.core.compliance import ComplianceInfo
+    from taiga_tpu_torch.ops import limbs as L, tape_device as TD
+    from taiga_tpu_torch.plonk.circuit import CircuitBuilder
+    from taiga_tpu_torch.plonk.expression import ADVICE, FIXED, INSTANCE
+    from taiga_tpu_torch.plonk.prover import ProverPipeline
+
+    vk = pk.vk
+    pis, circuit = ComplianceInfo.random(random.Random(seed)).build()
+    inst = [v.v for v in pis.to_instance()]
+    builder = CircuitBuilder(vk.cs, vk.k, "prove")
+    circuit.synthesize(builder, pk.config)
+    pipe = ProverPipeline(pk, dev)
+    ks = {FIXED: pipe._t(pk.fixed_mont()),
+          ADVICE: pipe._t(np.stack([L.FP.array_to_mont(col) for col in builder.advice])),
+          INSTANCE: pipe._t(L.FP.array_to_mont(inst + [0] * (vk.n - len(inst)))[None])}
+    ch = {"theta": random.Random(seed).getrandbits(250)}
+    a, s = (torch.stack([TD.tape_eval_device(tapes[side], ks, tapes[side].scalar_values(ch), vk.n)
+                         for tapes in pipe.lookup_tapes()]) for side in (0, 1))
+    if a.shape != (LOOKUPS, N, 16):
+        raise AssertionError(f"lookup columns {tuple(a.shape)}, expected ({LOOKUPS}, {N}, 16)")
+    return a, s
+
+
+def phase_lookup(pk, gen, seed: int, dev):
+    """K15 (permute_pairs_lm, csrc/lookup_sort.cu), K16 (from_mont_lm)
+    and K17 (msm_digits_lm, csrc/convert.cu) against their
+    plain versions bit for bit on every element. K15 at a proof's
+    (LOOKUPS, n) and a batch of BATCH's (BATCH LOOKUPS, n) rows with u = n -
+    9: the compliance circuit's real compressed columns, the same with one A
+    entry moved out of the table (its ok flag false, the outputs still
+    equal), and random columns with heavy repeats, an all-equal column and
+    rows of 0 and p - 1; K16 at a proof's (12, n) and a batch's
+    (8, 12, n), rows of 0, 1 and p - 1 among them, and on Fq; K17 at a
+    fixed-base chunk's 8 columns and the padded 4-, 2- and 1-column chunks
+    (packed keys), and keyed at the device IPA's 2 x n / 2 and a general
+    MSM's n. Each timed (profiler device time) beside its plain version's
+    time and its bound."""
+    import torch
+    from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L
+
+    spec = L.FP
+    err = 0
+    t0 = time.perf_counter()
+
+    def held(what, fn):
+        nonlocal err
+        got = fn()
+        with FK.plain_versions():
+            want, ms = once_ms(fn)
+        got, want = (g if isinstance(g, tuple) else (g,) for g in (got, want))
+        err = max(err, compare(what, got, want))
+        return got, ms
+
+    def mont(vals):  # host ints -> (len, 16) Montgomery on the card
+        return torch.as_tensor(spec.array_to_mont([v % spec.modulus for v in vals]), device=dev)
+
+    # K15
+    real_a, real_s = lookup_columns(pk, seed, dev)
+    bad_a = real_a.clone()
+    bad_a[0, 17] = mont([random.Random(seed + 1).getrandbits(254)])[0]  # not in the table
+    rng = random.Random(seed + 2)
+    table = [0, spec.modulus - 1] + [rng.getrandbits(254) for _ in range(N - 2)]
+    rand_a, rand_s = [], []
+    for r in range(LOOKUPS):
+        if r == 0:    # all one value
+            a = [table[5]] * N
+        elif r == 1:  # 0 and p - 1, both in the table
+            a = [0, spec.modulus - 1] * (N // 2)
+        else:         # heavy repeats of a few values
+            a = [rng.choice(table[: 4 ** r]) for _ in range(N)]
+        rand_a.append(mont(a))
+        rand_s.append(mont(table))
+    rand_a, rand_s = torch.stack(rand_a), torch.stack(rand_s)
+    cases = {"real": (real_a, real_s), "one entry out": (bad_a, real_s),
+             "random repeats": (rand_a, rand_s)}
+    k15 = {}
+    for what, (a, s) in cases.items():
+        (ap, sp, ok), plain = held(f"permute_pairs[{what}]",
+                                   lambda a=a, s=s: FK.permute_pairs_lm(a, s, LOOKUP_U))
+        want_ok = [what != "one entry out" or r != 0 for r in range(LOOKUPS)]
+        if ok.tolist() != want_ok:
+            raise AssertionError(f"permute_pairs[{what}]: ok flags {ok.tolist()}, not {want_ok}")
+        k15[what] = plain
+    # a batch: every case's rows in one call, BATCH LOOKUPS rows
+    reps = BATCH * LOOKUPS // (3 * LOOKUPS) + 1
+    batch_a = torch.cat([c[0] for c in cases.values()] * reps)[: BATCH * LOOKUPS]
+    batch_s = torch.cat([c[1] for c in cases.values()] * reps)[: BATCH * LOOKUPS]
+    _, k15["batch"] = held("permute_pairs[batch]",
+                           lambda: FK.permute_pairs_lm(batch_a, batch_s, LOOKUP_U))
+
+    def lookup_bound(R):
+        """The rows' A and S read and A' and S' written once, against the
+        keys' 2 R u products out of Montgomery form (A' and S' are input
+        elements, copied back) and a comparison sort's 2 R u log2 u
+        comparisons of SORT_OPS word subtractions (the counting rank does
+        u^2)."""
+        u = LOOKUP_U
+        return bound_ms(4 * R * u * 64 + R, 2 * R * u * MM_IMADS
+                        + 2 * R * u * math.log2(u) * SORT_OPS)
+
+    out = {}
+    shapes = {}
+    for what, (a, s) in (("proof", cases["real"]), ("batch", (batch_a, batch_s))):
+        R = a.shape[0]
+        ms = 3 * kernel_ms("permute_pairs", lambda a=a, s=s: FK.permute_pairs_lm(a, s, LOOKUP_U),
+                           10, 3)
+        plain = k15["real" if what == "proof" else "batch"]
+        shapes[what] = dict(ms=ms, plain_ms=plain, bound=lookup_bound(R), R=R)
+        log(f"K15 permute_pairs   at ({R}, {N}), u={LOOKUP_U}: equal; {ms:.6f} ms a call of 3 "
+            f"launches (plain {plain:.3f} ms, bound {shapes[what]['bound'][0]:.6f} ms by "
+            f"{shapes[what]['bound'][1]})")
+    out["permute_pairs"] = dict(err=err, **shapes["proof"], batch=shapes["batch"])
+    log(f"K15 equal to its plain version on the real columns, one entry out (ok false), random "
+        f"repeats, an all-equal column and rows of 0 and p - 1, and a batch of {BATCH}")
+
+    # K16
+    consts = [torch.as_tensor(L.int_to_limbs(v), device=dev)
+              for v in (0, 1, spec.r, spec.modulus - 1)]
+    fq = rows_fe(gen, (3, 100), L.FQ, dev)
+    held("from_mont[fq]", lambda: FK.from_mont_lm(fq, "fq"))
+    conv = {}
+    for what, shape in (("proof", (CONVERT_COLS, N)), ("batch", (BATCH, CONVERT_COLS, N))):
+        x = rows_fe(gen, shape, spec, dev)
+        rows = x.view(-1, N, 16)
+        for r, cst in enumerate(consts):
+            rows[r + 1] = cst
+        _, plain = held(f"from_mont[{what}]", lambda x=x: FK.from_mont_lm(x))
+        ms = kernel_ms("from_mont", lambda x=x: FK.from_mont_lm(x), 20)
+        M = x.numel() // 16
+        conv[what] = dict(ms=ms, plain_ms=plain, bound=bound_ms(128 * M, MM_IMADS * M))
+        b = conv[what]["bound"]
+        log(f"K16 from_mont       at {tuple(shape)}: equal; {ms:.6f} ms a launch (plain "
+            f"{plain:.3f} ms, bound {b[0]:.6f} ms by {b[1]})")
+    out["from_mont"] = dict(err=err, **conv["proof"], batch=conv["batch"])
+
+    # K17
+    digit_shapes = {}
+    for cols, live in DIGIT_CHUNKS:
+        x = rows_fe(gen, (cols, N), L.FQ, dev)  # plain scalars, 0, 1 and q - 1 among them
+        x[live:] = 0
+        _, plain = held(f"msm_digits[{cols} columns, {live} live]",
+                        lambda x=x: FK.msm_digits_lm(x, WINDOW_C, packed=True))
+        ms = kernel_ms("msm_digits", lambda x=x: FK.msm_digits_lm(x, WINDOW_C, packed=True), 20)
+        bound = bound_ms(cols * N * (64 + 8 * (256 // WINDOW_C)), 0)
+        digit_shapes[f"packed {cols} columns, {live} live"] = dict(ms=ms, plain_ms=plain,
+                                                                   bound=bound)
+        log(f"K17 msm_digits      packed at ({cols}, {N}), {live} live: equal; {ms:.6f} ms a "
+            f"launch (plain {plain:.3f} ms, bound {bound[0]:.6f} ms by {bound[1]})")
+    for cols, n in ((2, N // 2), (1, N)):
+        x = rows_fe(gen, (cols, n), L.FQ, dev)
+        held(f"msm_digits[keyed {cols} x {n}]", lambda x=x: FK.msm_digits_lm(x, WINDOW_C))
+    first = digit_shapes["packed 8 columns, 8 live"]
+    out["msm_digits"] = dict(err=err, **first, shapes={
+        k: dict(ms=v["ms"], plain_ms=v["plain_ms"], bound_ms=v["bound"][0],
+                bound_by=v["bound"][1]) for k, v in digit_shapes.items()})
+    log(f"K15-K17 held and timed in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 KERNELS = [
     # name, wrapper attribute, source, TPU kernel replaced, the proofs whose
     # path launches it ("native": the native IPA open, "device": ipa="device",
@@ -1628,6 +1820,19 @@ KERNELS = [
     ("synthetic_div", "synthetic_div_lm", "taiga_tpu_torch/csrc/poly.cu",
      "none: the XLA program taiga_tpu/ops/poly.py:77 (synthetic_div)",
      ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
+    # K15: every compliance proof's lookup permutation (three launches a call)
+    ("permute_pairs", "permute_pairs_lm", "taiga_tpu_torch/csrc/lookup_sort.cu",
+     "none: the XLA program taiga_tpu/ops/lookup_sort.py:112 (permute_pairs_device)",
+     ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
+    # K16: the commits', query evaluations' and multiopen's conversions
+    ("from_mont", "from_mont_lm", "taiga_tpu_torch/csrc/convert.cu",
+     "none: the XLA program taiga_tpu/plonk/prover.py:739 (_from_mont_jit)",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list", "parallel")),
+    # K17: every MSM's window digits (the fixed-base chunks' packed keys)
+    ("msm_digits", "msm_digits_lm", "taiga_tpu_torch/csrc/convert.cu",
+     "none: the XLA program taiga_tpu/ops/msm.py:657-673 (_digits_all under vmap and "
+     "_msm_fixed_dev's packed key)",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list", "parallel")),
 ]
 
 

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 SOURCES = ("mont_mul", "ec_add_proj", "tape_eval", "ec_fold_shared", "ec_add_jac", "poseidon",
-           "grand_product", "ntt", "poly")
+           "grand_product", "ntt", "poly", "lookup_sort", "convert")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FIELD_IDS = {"fp": 0, "fq": 1}
 
@@ -124,6 +124,15 @@ _ARGTYPES = {
                                ctypes.c_int, _VP],
         "taiga_synthetic_div": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _I64,
                                 _I64, ctypes.c_int, _VP],
+    },
+    "lookup_sort": {
+        "taiga_permute_pairs": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _VP, _VP, _I64, _I64,
+                                ctypes.c_int, _VP],
+    },
+    "convert": {
+        "taiga_from_mont": [_VP, _VP, _I64, ctypes.c_int, _VP],
+        "taiga_msm_digits": [_VP, _VP, _I64, _I64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             _VP],
     },
     "poseidon": {
         "taiga_poseidon_set_consts": [_VP] * 6,

@@ -26,10 +26,15 @@ warp's lanes read neighbouring words.
   K12 eval_polys_lm     C polynomials at Q points      csrc/poly.cu
   K13 linear_combo_lm   sum_c w_c * stack_c            csrc/poly.cu
   K14 synthetic_div_lm  (A(X) - A(p)) / (X - p)        csrc/poly.cu
+  K15 permute_pairs_lm  the lookups' permuted pairs    csrc/lookup_sort.cu
+  K16 from_mont_lm      a R^-1 (out of Montgomery form) csrc/convert.cu
+  K17 msm_digits_lm     an MSM's window digits and keys csrc/convert.cu
   (K4, the tape interpreter, is ops/tape_device.py + csrc/tape_eval.cu;
   K11's plain version is ops/ntt.py::ntt_plain, K12-K14's are
-  ops/poly.py::eval_polys_plain, linear_combo_plain, synthetic_div_plain.)
-  K8-K14 take element-major (..., 16) rows, the layout of ops/limbs.py;
+  ops/poly.py::eval_polys_plain, linear_combo_plain, synthetic_div_plain,
+  K15's ops/lookup_sort.py::permute_pairs_plain, K16's ops/limbs.py's
+  from_mont, K17's ops/msm.py::msm_digits_plain.)
+  K8-K17 take element-major (..., 16) rows, the layout of ops/limbs.py;
   mont_mul_rows runs K1 on such rows.
 
 Dispatch is by the tensors' device: on the CPU a wrapper runs the plain
@@ -60,7 +65,7 @@ _force_plain = False
 
 @contextlib.contextmanager
 def plain_versions():
-    """Within this block every wrapper (K1-K14, ec_seg_rounds, ec_horner,
+    """Within this block every wrapper (K1-K17, ec_seg_rounds, ec_horner,
     ec_bucket_weights, ec_ladder, ec_double, ec_add_tree, and
     poseidon_kernel's permute_batch and hash_n_batch) runs its plain
     version, on any device. Used to hold
@@ -871,6 +876,105 @@ def synthetic_div_lm(coeffs, point, point_inv, field: str = "fp"):
     return out
 
 
+def _aligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """t itself when contiguous with its first element 16-byte aligned, else
+    a contiguous copy: the kernels read an element as four 16-byte vectors."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def permute_pairs_lm(a_v, s_v, u: int):
+    """K15: the lookups' permuted pairs over the first u rows of R lookups'
+    (R, n, 16) canonical Montgomery columns A and S -> A' and S' (R, u, 16)
+    Montgomery and each lookup's ok flag (R,) bool, by value the JAX
+    package's permute_pairs_device (ops/lookup_sort.py's module note). Three
+    launches for all R lookups (the keys with from_mont fused, the counting
+    rank, the merge and fill, which copies A' and S' from the inputs). The
+    first u rows are read through the strides, in place."""
+    from . import lookup_sort as LS  # ops/lookup_sort.py holds the plain version
+
+    for nm, t in (("a_v", a_v), ("s_v", s_v)):
+        if t.dim() != 3:
+            raise ValueError(f"{nm}: shape {tuple(t.shape)}, expected (R, n, 16)")
+        check_rows(nm, t, *a_v.shape[:2], NLIMBS)
+    R, n = a_v.shape[:2]
+    if not 1 <= u <= n:
+        raise ValueError(f"permute_pairs: u = {u} of n = {n} rows")
+    if not use_kernel(a_v, s_v):
+        return LS.permute_pairs_plain(a_v, s_v, u)
+    if 2 * R > 65535:
+        raise ValueError(f"permute_pairs: {R} lookups, the kernel takes 32,767")
+    av, sv = (t if _aligned_rows(t) else t.contiguous() for t in (a_v, s_v))
+    ap = torch.empty((R, u, NLIMBS), dtype=a_v.dtype, device=a_v.device)
+    sp = torch.empty_like(ap)
+    ok = torch.empty((R,), dtype=torch.bool, device=a_v.device)
+    if R == 0:
+        return ap, sp, ok
+    # keys and sorted keys (8 words an element), their source indices,
+    # the leftovers' indices and the consumed flags
+    scratch = torch.empty((R * u * (4 * NLIMBS // 2 + 4),), dtype=a_v.dtype, device=a_v.device)
+    CK.check(CK.lib("lookup_sort").taiga_permute_pairs(
+        _ptr(av), av.stride(0), av.stride(1), _ptr(sv), sv.stride(0), sv.stride(1), _ptr(ap),
+        _ptr(sp), _ptr(ok), _ptr(scratch), R, u, CK.FIELD_IDS["fp"], CK.stream_ptr(a_v.device)),
+        "permute_pairs")
+    permute_pairs_lm.launches += 3
+    return ap, sp, ok
+
+
+def from_mont_lm(a, field: str = "fp"):
+    """K16: any (..., 16) canonical limbs out of Montgomery form (a R^-1),
+    one launch, one thread an element. Returns a contiguous tensor."""
+    if a.dim() < 1:
+        raise ValueError(f"a: shape {tuple(a.shape)}, expected (..., 16)")
+    check_rows("a", a, *a.shape[:-1], NLIMBS)
+    spec = _spec(field)
+    if not use_kernel(a):
+        return L.from_mont(a, spec)
+    a = _aligned_copy(a)
+    out = torch.empty_like(a)
+    if out.numel() == 0:
+        return out
+    CK.check(CK.lib("convert").taiga_from_mont(_ptr(a), _ptr(out), a.numel() // NLIMBS,
+                                               CK.FIELD_IDS[field], CK.stream_ptr(a.device)),
+             "from_mont")
+    from_mont_lm.launches += 1
+    return out
+
+
+def msm_digits_lm(scalars, c: int, packed: bool = False):
+    """K17: the c-bit window digits (16 % c == 0, W = 256 / c windows) of C
+    columns of N plain scalars (C, N, 16), one launch, one thread a scalar:
+    keyed (W, C, N) int64 col 2^c + digit, or, `packed`, the fixed-base
+    path's (C W N,) int64 sort key ((col 2^c + digit) << idx_bits) | lane,
+    lane = col W N + w N + i (ops/msm.py::msm_digits_plain)."""
+    from . import msm as MS  # ops/msm.py holds the plain version
+
+    if scalars.dim() != 3:
+        raise ValueError(f"scalars: shape {tuple(scalars.shape)}, expected (C, N, 16)")
+    check_rows("scalars", scalars, *scalars.shape[:2], NLIMBS)
+    if c < 1 or 16 % c:
+        raise ValueError(f"msm_digits: window c = {c} does not divide 16")
+    C, N = scalars.shape[:2]
+    W = 256 // c
+    idx_bits = MS.packed_idx_bits(C * W * N)
+    if packed and max(1, (C << c) - 1).bit_length() + idx_bits > 63:
+        raise ValueError(f"msm_digits: ({C}, {N}) scalars at c = {c} overflow an int64 key")
+    if not use_kernel(scalars):
+        return MS.msm_digits_plain(scalars, c, packed)
+    if C > 65535:
+        raise ValueError(f"msm_digits: {C} columns, the kernel takes 65,535")
+    s = _aligned_copy(scalars)
+    out = torch.empty((C * W * N,) if packed else (W, C, N), dtype=torch.int64,
+                      device=scalars.device)
+    if out.numel() == 0:
+        return out
+    CK.check(CK.lib("convert").taiga_msm_digits(_ptr(s), _ptr(out), C, N, c, int(packed),
+                                                idx_bits, CK.stream_ptr(s.device)), "msm_digits")
+    msm_digits_lm.launches += 1
+    return out
+
+
 def ec_add_proj_lm(x1, y1, z1, x2, y2, z2, field: str = "fq"):
     """K2: projective (RCB complete) addition over (16, B) limb-major points."""
     B = x1.shape[-1]
@@ -1161,3 +1265,6 @@ ntt_lm.launches = 0
 eval_polys_lm.launches = 0
 linear_combo_lm.launches = 0
 synthetic_div_lm.launches = 0
+permute_pairs_lm.launches = 0
+from_mont_lm.launches = 0
+msm_digits_lm.launches = 0

@@ -7,11 +7,14 @@ and table column S (first `u` usable rows of each), produce:
        from S — absence means the lookup FAILS); remaining positions filled
        with the leftover S values in sorted order.
 
-torch has no multi-key sort, so a 256-bit value is sorted as 8 32-bit words
-held in int64 by LSD passes of a stable sort, least significant key first —
-the same order as the reference's lexicographic `lax.sort`. The merge is one
-combined sort of [S | distinct(A')] with a tag tiebreaker, and the fill is a
-stable compaction plus a gather. The permuted columns are committed, so
+`permute_pairs_device` runs K15 (ff_kernels.permute_pairs_lm,
+csrc/lookup_sort.cu) on a CUDA tensor, and its plain version,
+`permute_pairs_plain`, on the CPU. In the plain version a 256-bit value is
+sorted as 8 32-bit words held in int64 by LSD passes of a stable sort, least
+significant key first (torch has no multi-key sort) — the same order as the
+reference's lexicographic `lax.sort`. The merge is one combined sort of
+[S | distinct(A')] with a tag tiebreaker, and the fill is a stable
+compaction plus a gather. The permuted columns are committed, so
 everything, the `ok` flag of a failing lookup included, is bit-equal to the
 reference. Returns an `ok` flag per lookup instead of raising.
 """
@@ -20,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from . import ff_kernels as FK
 from . import limbs as L
 
 _ONES = 0xFFFFFFFF
@@ -112,7 +116,14 @@ def _permute_one(a_plain, s_plain):
 def permute_pairs_device(a_v, s_v, u: int):
     """Batched device permutation for L lookups: a_v, s_v (L, n, 16)
     MONTGOMERY values -> (ap, sp) (L, u, 16) Montgomery + (L,) ok flags.
-    Rows past `u` (blinding) are the caller's business."""
+    Rows past `u` (blinding) are the caller's business. K15 on a CUDA
+    tensor (three launches for all the lookups), the plain version on the CPU."""
+    return FK.permute_pairs_lm(a_v, s_v, u)
+
+
+def permute_pairs_plain(a_v, s_v, u: int):
+    """K15's plain version: permute_pairs_device's function in plain torch,
+    a lookup at a time, with the eager conversions of ops/limbs.py."""
     a_plain = L.from_mont(a_v[:, :u], L.FP)
     s_plain = L.from_mont(s_v[:, :u], L.FP)
     outs = [_permute_one(a_plain[i], s_plain[i]) for i in range(a_v.shape[0])]

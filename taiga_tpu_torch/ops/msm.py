@@ -66,6 +66,30 @@ def _digits_all(scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def packed_idx_bits(total: int) -> int:
+    """The lane bits of the fixed-base path's packed sort key over `total`
+    lanes."""
+    return max(1, (total - 1).bit_length())
+
+
+def msm_digits_plain(scalars: torch.Tensor, c: int, packed: bool = False) -> torch.Tensor:
+    """K17's plain version: the c-bit window digits of C columns of plain
+    scalars (C, N, 16), W = 256 / c windows. Keyed: (W, C, N) int64 col 2^c
+    + digit, the general MSMs' composite key. Packed: the fixed-base path's
+    (C W N,) int64 sort key ((col 2^c + digit) << idx_bits) | lane, lane =
+    col W N + w N + i (a total order equal to a stable sort of the keys)."""
+    ncols = scalars.shape[0]
+    col_off = torch.arange(ncols, dtype=torch.int64, device=scalars.device)[:, None] << c
+    if not packed:
+        digits = torch.stack([_digits_all(s, c) for s in scalars], dim=1)  # (W, C, N)
+        return digits + col_off
+    digits = torch.stack([_digits_all(s, c) for s in scalars])  # (C, W, N)
+    total = digits.numel()
+    comp = (digits.reshape(ncols, -1) + col_off).reshape(total)
+    lanes = torch.arange(total, dtype=torch.int64, device=scalars.device)
+    return (comp << packed_idx_bits(total)) | lanes
+
+
 def _mask_identity(x, y, z, keep, field: str):
     """Lanes where keep is False become the projective identity (0:1:0).
     Points (16, ..., L), keep (..., L)."""
@@ -313,11 +337,16 @@ def _to_projective(px, py, pz, field: str, in_form: str):
         return px, py, pz
     if in_form != "jacobian":
         raise ValueError(f"in_form must be 'jacobian' or 'projective', not {in_form!r}")
-    spec = L.FIELDS[field]
-    z2 = L.mont_mul(pz, pz, spec)
-    x = L.mont_mul(px, pz, spec).T
-    z = L.mont_mul(z2, pz, spec).T
+    x, z = _jacobian_xz(px, pz, field)
     return _mask_identity(x, py.T, z, ~L.is_zero(pz), field)
+
+
+def _jacobian_xz(px, pz, field: str):
+    """Jacobian rows (N, 16) X and Z -> the limb-major (16, N) projective
+    X*Z and Z^3: three K1 launches."""
+    xt, zt = px.T.contiguous(), pz.T.contiguous()
+    z2 = FK.mont_mul_lm(zt, zt, field)
+    return FK.mont_mul_lm(xt, zt, field), FK.mont_mul_lm(z2, zt, field)
 
 
 def _gather_sorted(pts, pidx):
@@ -327,11 +356,11 @@ def _gather_sorted(pts, pidx):
 
 
 def _to_jacobian(X, Y, Z, field: str):
-    """Projective (L, 16) rows (X : Y : Z) -> Jacobian (X*Z, Y*Z^2, Z)."""
-    spec = L.FIELDS[field]
-    xz = L.mont_mul(X, Z, spec)
-    yz2 = L.mont_mul(Y, L.mont_mul(Z, Z, spec), spec)
-    return xz, yz2, Z.contiguous()
+    """Limb-major projective (16, L) (X : Y : Z) -> Jacobian rows (L, 16)
+    (X*Z, Y*Z^2, Z): three K1 launches."""
+    X, Y, Z = (v.contiguous() for v in (X, Y, Z))
+    zz = FK.mont_mul_lm(Z, Z, field)
+    return FK.mont_mul_lm(X, Z, field).T, FK.mont_mul_lm(Y, zz, field).T, Z.T
 
 
 def msm(px, py, pz, scalar_limbs, field: str = "fq", c: int = WINDOW_BITS,
@@ -346,12 +375,11 @@ def msm(px, py, pz, scalar_limbs, field: str = "fq", c: int = WINDOW_BITS,
     together (one launch per round for all of them); their sums combine by
     Horner from the most significant window."""
     pp = _to_projective(px, py, pz, field, in_form)
-    digits = _digits_all(scalar_limbs, c)  # (W, N)
+    digits = FK.msm_digits_lm(scalar_limbs[None], c)[:, 0]  # (W, N)
     d, order = torch.sort(digits, dim=-1, stable=True)
     ws = _window_reduce(_gather_sorted(pp, order), d, field, c, digits.shape[1])
     # windows most significant last: acc = [2^c] acc + w, one chained launch
-    X, Y, Z = (v[:, 0][None, :] for v in FK.ec_horner_lm(*ws, c, field))  # (1, 16)
-    xz, yz2, Z = _to_jacobian(X, Y, Z, field)
+    xz, yz2, Z = _to_jacobian(*FK.ec_horner_lm(*ws, c, field), field)  # (1, 16) each
     return torch.stack([xz[0], yz2[0], Z[0]])
 
 
@@ -366,15 +394,12 @@ def msm_multi(px, py, pz, scalars, field: str = "fq", c: int = WINDOW_BITS,
     # compacted width: per-column stride-CHUNK partials + bucket runs
     compact = 1 << max(1, (total // _CHUNK + ncols * nbuckets - 1).bit_length())
     pp = _to_projective(px, py, pz, field, in_form)
-    digits = torch.stack([_digits_all(s, c) for s in scalars], dim=1)  # (W, ncols, n)
-    col_off = torch.arange(ncols, dtype=digits.dtype, device=digits.device)[:, None] * nbuckets
-    comp = (digits + col_off).reshape(digits.shape[0], total)  # composite keys
-    d, order = torch.sort(comp, dim=-1, stable=True)
+    comp = FK.msm_digits_lm(scalars, c)  # (W, ncols, n) composite keys
+    d, order = torch.sort(comp.reshape(comp.shape[0], total), dim=-1, stable=True)
     pts = _gather_sorted(pp, order % n)  # shared point set: same points for every column
     ws = _window_reduce_multi(pts, d, field, c, ncols, n, compact)  # 3 x (16, W, ncols)
-    X, Y, Z = FK.ec_horner_lm(*ws, c, field)  # (16, ncols): the windows' Horner
-    xz, yz2, Zt = _to_jacobian(X.T, Y.T, Z.T, field)
-    return torch.stack([xz, yz2, Zt], dim=1)
+    # the windows' Horner, 3 x (16, ncols), as (ncols, 3, 16) Jacobian
+    return torch.stack(_to_jacobian(*FK.ec_horner_lm(*ws, c, field), field), dim=1)
 
 
 def msm_host(points, scalars):
@@ -419,10 +444,8 @@ def fixed_base_table(px, py, pz, field: str = "fq", c: int = WINDOW_BITS):
         raise ValueError("fixed_base_table: every point must be finite")
     n = px.shape[0]
     W = 256 // c
-    z2 = L.mont_mul(pz, pz, spec)
-    x = L.mont_mul(px, pz, spec).T.contiguous()
+    x, z = _jacobian_xz(px, pz, field)
     y = py.T.contiguous()
-    z = L.mont_mul(z2, pz, spec).T.contiguous()
     tables = []
     for _ in range(W):
         tables.append((x, y, z))
@@ -451,28 +474,23 @@ def _unpack_rows_lm(rows_t, field: str):
 
 
 def _msm_fixed_dev(tbl, scalars, field: str, c: int):
-    dev = scalars.device
     ncols, n = scalars.shape[0], scalars.shape[1]
     W = 256 // c
     nbuckets = 1 << c
     total = ncols * W * n
     compact = 1 << max(1, (total // _CHUNK + ncols * nbuckets - 1).bit_length())
 
-    digits = torch.stack([_digits_all(s, c) for s in scalars])  # (C, W, n)
-    col_off = torch.arange(ncols, dtype=torch.int64, device=dev)[:, None] * nbuckets
-    comp = (digits.reshape(ncols, W * n) + col_off).reshape(total)
     # one sort of an int64 key: composite key in the high bits, lane index
-    # in the low bits — a total order, equal to a stable argsort of comp
-    idx_bits = max(1, (total - 1).bit_length())
-    packed = (comp << idx_bits) | torch.arange(total, dtype=torch.int64, device=dev)
-    packed = torch.sort(packed).values
+    # in the low bits — a total order, equal to a stable argsort of the keys
+    idx_bits = packed_idx_bits(total)
+    packed = torch.sort(FK.msm_digits_lm(scalars, c, packed=True)).values
     d = packed >> idx_bits
     order = packed & ((1 << idx_bits) - 1)
     pidx = order % (W * n)  # table lanes repeat per column
     pts = _unpack_rows_lm(tbl.index_select(0, pidx).T.contiguous(), field)
     X, Y, Z = _window_reduce_multi(pts, d, field, c, ncols, W * n, compact)
     # (3, 16, ncols) projective -> (ncols, 3, 16) Jacobian
-    return torch.stack(_to_jacobian(X.T, Y.T, Z.T, field), dim=1)
+    return torch.stack(_to_jacobian(X, Y, Z, field), dim=1)
 
 
 def msm_fixed_multi(table, scalars, field: str = "fq", c: int = WINDOW_BITS,

@@ -174,13 +174,8 @@ def sharded_point_sum(group: Group, px, py, pz, field: str = "fq"):
     projective points, the (3, 16) partials are all-gathered and folded in
     rank order with K2, then converted back to Jacobian. Returns (3, 16),
     replicated."""
-    spec = L.FIELDS[field]
     # (n, 16) Jacobian -> limb-major projective (X Z : Y : Z^3), the identity (0 : 1 : 0)
-    z2 = L.mont_mul(pz, pz, spec)
-    inf = L.is_zero(pz)
-    x = torch.where(inf[:, None], 0, L.mont_mul(px, pz, spec)).T.contiguous()
-    y = torch.where(inf[:, None], L.const(spec.one_mont, px.device), py).T.contiguous()
-    z = torch.where(inf[:, None], 0, L.mont_mul(z2, pz, spec)).T.contiguous()
+    x, y, z = (v.contiguous() for v in msm_mod._to_projective(px, py, pz, field, "jacobian"))
     ln = x.shape[1]
     lane = torch.arange(ln, device=px.device)
     for r in range((ln - 1).bit_length()):
@@ -193,9 +188,7 @@ def sharded_point_sum(group: Group, px, py, pz, field: str = "fq"):
     for d in range(1, group.world):
         acc = FK.ec_add_proj_lm(*acc, *(parts[d, i][:, None].contiguous() for i in range(3)),
                                 field)
-    X, Y, Z = (v[:, 0][None] for v in acc)
-    xz = L.mont_mul(X, Z, spec)
-    yz2 = L.mont_mul(Y, L.mont_mul(Z, Z, spec), spec)
+    xz, yz2, Z = msm_mod._to_jacobian(*acc, field)  # (1, 16) each
     return torch.stack([xz[0], yz2[0], Z[0]])
 
 

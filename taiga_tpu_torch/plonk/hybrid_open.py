@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..crypto.fields import Fp
-from ..ops import limbs as L, poly
+from ..ops import ff_kernels as FK, limbs as L, poly
 from .srs import get_params
 
 P = Fp.MODULUS
@@ -97,7 +97,7 @@ def _aggregate(pipe, all_coeffs_b, entries_b, trs, h_blinds):
         tr.write_point(c_h)
         x3s.append(tr.challenge(b"mo-x3").v)
     a_dev = poly.eval_polys_at_points(agg, mont([[x3] for x3 in x3s]))[:, 0]  # (B, G, 16)
-    a_vals = L.limbs_to_ints(L.from_mont(a_dev, L.FP))
+    a_vals = L.limbs_to_ints(FK.from_mont_lm(a_dev))
     w_chs = []
     for bi, tr in enumerate(trs):
         for av in a_vals[bi * G : (bi + 1) * G]:

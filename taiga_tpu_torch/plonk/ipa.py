@@ -157,14 +157,14 @@ def _lr_cols(a_lo, a_hi):
     z = torch.zeros_like(a_lo)
     col0 = torch.cat([a_hi, z], dim=0)
     col1 = torch.cat([z, a_lo], dim=0)
-    return _from_mont(torch.stack([col0, col1]))
+    return FK.from_mont_lm(torch.stack([col0, col1]))
 
 
 def _ipa_dots(a_lo, a_hi, b_lo, b_hi):
     """<a_hi, b_lo> and <a_lo, b_hi> as (2, 16) plain limbs."""
     ip_l = poly.mont_dot(a_hi, b_lo, "fp")
     ip_r = poly.mont_dot(a_lo, b_hi, "fp")
-    return torch.stack([_from_mont(ip_l), _from_mont(ip_r)])
+    return torch.stack([FK.from_mont_lm(ip_l), FK.from_mont_lm(ip_r)])
 
 
 def _ipa_fold_ab(a_lo, a_hi, b_lo, b_hi, u_m, uinv_m):
@@ -173,12 +173,8 @@ def _ipa_fold_ab(a_lo, a_hi, b_lo, b_hi, u_m, uinv_m):
     return a, b
 
 
-def _from_mont(v):
-    return L.from_mont(v, L.FP)
-
-
 def _msm_mont(g_parts, scalars_mont) -> VestaPoint:
-    plain = _from_mont(scalars_mont)
+    plain = FK.from_mont_lm(scalars_mont)
     out = msm_mod.msm(g_parts[0], g_parts[1], g_parts[2], plain, field="fq")
     return ec.points_from_device((out[0][None], out[1][None], out[2][None]), VestaPoint)[0]
 

@@ -267,7 +267,7 @@ class ProverPipeline:
         folded (sharded_msm_multi); every rank holds the same coefficients
         and gets the same points."""
         if group is None:
-            outs = msm_mod.msm_fixed_multi(self.srs_table(), L.from_mont(coeffs_mont, L.FP),
+            outs = msm_mod.msm_fixed_multi(self.srs_table(), FK.from_mont_lm(coeffs_mont),
                                            field="fq")
         else:
             outs = self._msm_sharded(coeffs_mont, group)
@@ -284,7 +284,7 @@ class ProverPipeline:
         key = (group.rank, group.world)
         if self._srs_shard is None or self._srs_shard[0] != key:
             self._srs_shard = (key, tuple(self._t(a[sl]) for a in srs_device(self.k)))
-        plain = L.from_mont(coeffs_mont[:, sl].contiguous(), L.FP)
+        plain = FK.from_mont_lm(coeffs_mont[:, sl])
         return sharded.sharded_msm_multi(group, *self._srs_shard[1], plain, field="fq")
 
     # --- permutation grand products ------------------------------------
@@ -694,12 +694,13 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, rand: _Rand, t
         lk_a_vb, lk_s_vb = pipe.lookup_as_values_batch(advice_vb, inst_vb, thetas)
         flat = lambda a: a.reshape(B * nlk, n, L.NLIMBS)
         ap_u, sp_u, lk_ok = LS.permute_pairs_device(flat(lk_a_vb), flat(lk_s_vb), u)
-        # checked at once (the host has just waited on the advice commit):
-        # left until after the quotient, a failing lookup surfaces as a
-        # quotient that does not divide, as in taiga_tpu/plonk/prover.py,
-        # whose device path asserts the degree (:1001) before it reads the
-        # flag (:1063)
-        bad = [bi for bi in range(B) if not bool(lk_ok[bi * nlk : (bi + 1) * nlk].all())]
+        # checked at once (the host has just waited on the advice commit),
+        # every proof's flags in one transfer: left until after the
+        # quotient, a failing lookup surfaces as a quotient that does not
+        # divide, as in taiga_tpu/plonk/prover.py, whose device path
+        # asserts the degree (:1001) before it reads the flag (:1063)
+        ok_b = lk_ok.view(B, nlk).all(dim=1).tolist()
+        bad = [bi for bi in range(B) if not ok_b[bi]]
         if bad:
             raise ValueError(f"lookup failure: input value not in table (proofs {bad})")
         # blinding rows by (proof, lookup), A' then S': the host prover's
@@ -766,8 +767,9 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, rand: _Rand, t
     h_all_b = pipe.quotient_coeffs_batch(advice_eb, inst_eb, z_eb, betas, gammas, ys, thetas,
                                          **lk_kwargs)
     del advice_eb, inst_eb, z_eb, lk_kwargs
-    # degree check: pieces beyond NUM_H_PIECES*n must vanish
-    if bool(L.from_mont(h_all_b[:, NUM_H_PIECES * n :], L.FP).any()):
+    # degree check: pieces beyond NUM_H_PIECES*n must vanish. 0 is its own
+    # Montgomery form, so the Montgomery limbs are tested as they are
+    if bool(h_all_b[:, NUM_H_PIECES * n :].any()):
         raise AssertionError("quotient degree overflow")
     mark("quotient eval")
     h_pieces_b = h_all_b[:, : NUM_H_PIECES * n].reshape(B, NUM_H_PIECES, n, L.NLIMBS)
@@ -808,7 +810,7 @@ def _batch_phase1(pk: ProvingKey, circuits, instances, *, device, rand: _Rand, t
     pts_mont_b = pipe._t(np.stack([np.stack([L.int_to_limbs(pts[rot] * L.FP.r % P)
                                              for rot in rotset]) for pts in points_b]))
     evals_dev = poly.eval_polys_at_points(all_coeffs_b, pts_mont_b)  # (B, Q, C, 16)
-    ev_ints = L.limbs_to_ints(L.from_mont(evals_dev, L.FP))
+    ev_ints = L.limbs_to_ints(FK.from_mont_lm(evals_dev))
     ncols_all, nq = all_coeffs_b.shape[1], len(rotset)
     row = {rot: qi for qi, rot in enumerate(rotset)}
     entries_b = []

@@ -26,6 +26,17 @@ of 8. A later kernel slice adds a row.
                   (synthetic_div, (B, G, 2^13), a point a polynomial) and
                   its x3 evaluation ((B, G, 2^13) at one point). A
                   checkout before K12-K14 runs them as plain torch ops.
+  lookup          the last plain-torch programs of the main path at a
+                  proof's and a batch's shapes (B = 1, 8): the lookups'
+                  permuted pairs (lookup_sort.permute_pairs_device, (5 B,
+                  2^13) rows of u = 2^13 - 9, A drawn with repeats from S),
+                  the Montgomery conversion of an advice commit's columns
+                  (from_mont_lm, or limbs.from_mont, (B, 12, 2^13)), a
+                  fixed-base chunk's window digits and packed sort keys
+                  (msm_digits_lm, or the plain _digits_all loop and packing,
+                  (8, 2^13) scalars at c = 8) and its projective-to-Jacobian
+                  products (msm._to_jacobian over 8 columns). A checkout
+                  before K15-K17 runs them as plain torch ops.
 
 Each call is timed three ways: the stream time between two CUDA events
 after a warm-up call; under torch.profiler, its device operations (kernels,
@@ -132,12 +143,57 @@ def poly_calls(mods, fe):
     return calls
 
 
+LOOKUP_ROWS = 5  # the compliance circuit's lookups
+WINDOW_C = 8
+
+
+def lookup_calls(mods, fe):
+    import torch
+
+    FK, L, LS, M = mods["FK"], mods["L"], mods["LS"], mods["M"]
+    has = hasattr(FK, "msm_digits_lm")
+    from_mont = FK.from_mont_lm if has else (lambda x: L.from_mont(x, L.FP))
+
+    def digits(x):  # a chunk's packed sort keys, as the checkout's _msm_fixed_dev forms them
+        if has:
+            return FK.msm_digits_lm(x, WINDOW_C, packed=True)
+        d = torch.stack([M._digits_all(s, WINDOW_C) for s in x])
+        C, total = d.shape[0], d.numel()
+        off = torch.arange(C, dtype=torch.int64, device=x.device)[:, None] << WINDOW_C
+        comp = (d.reshape(C, -1) + off).reshape(total)
+        return (comp << max(1, (total - 1).bit_length())) | torch.arange(
+            total, dtype=torch.int64, device=x.device)
+
+    def to_jacobian(X, Y, Z):  # (16, 8) limb-major projective; a parent took (8, 16) rows
+        return M._to_jacobian(X, Y, Z, "fq") if has else M._to_jacobian(X.T, Y.T, Z.T, "fq")
+
+    calls = []
+    u = N - 9
+    for B in (1, BATCH):
+        s = fe(LOOKUP_ROWS * B, N)
+        pick = torch.randint(0, 64, (LOOKUP_ROWS * B, N), device=s.device)
+        a = torch.gather(s, 1, pick[..., None].expand(-1, -1, 16))  # heavy repeats, all in S
+        cols = fe(B, 12, N)
+        calls += [
+            (f"permute_pairs B={B}", lambda a=a, s=s: LS.permute_pairs_device(a, s, u),
+             ("k_lookup_keys", "k_lookup_rank", "k_lookup_merge")),
+            (f"from_mont advice B={B}", lambda x=cols: from_mont(x), ("k_from_mont",)),
+        ]
+    sc = fe(8, N)
+    pts = tuple(fe(8).T.contiguous() for _ in range(3))
+    calls += [(f"msm_digits packed (8, {N})", lambda x=sc: digits(x), ("k_msm_digits",)),
+              ("to_jacobian 8 columns", lambda p=pts: to_jacobian(*p), ("k_mont_mul",))]
+    return calls
+
+
 SLICES = {  # name: (the wrapper that marks the kernels, source, calls; a checkout
     #            without the wrapper runs the calls only if `before` is True)
     "grand_products": dict(wrapper="mont_inv_lm", source="grand_product",
                            calls=grand_product_calls, before=False),
     "ntt": dict(wrapper="ntt_lm", source="ntt", calls=ntt_calls, before=True),
     "poly": dict(wrapper="eval_polys_lm", source="poly", calls=poly_calls, before=True),
+    "lookup": dict(wrapper="permute_pairs_lm", source=("lookup_sort", "convert"),
+                   calls=lookup_calls, before=True),
 }
 
 
@@ -178,7 +234,8 @@ def main(argv=None) -> int:
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from taiga_tpu_torch.ops import cuda_kernels as CK, ff_kernels as FK, ntt as NT, poly as PL
+    from taiga_tpu_torch.ops import cuda_kernels as CK, ff_kernels as FK, limbs as L
+    from taiga_tpu_torch.ops import lookup_sort as LS, msm as M, ntt as NT, poly as PL
 
     if not FK.__file__.startswith(root):
         raise AssertionError(f"imported {FK.__file__}, not the checkout at {root}")
@@ -208,7 +265,8 @@ def main(argv=None) -> int:
         out[name] = res
         if not has and not sl["before"]:
             continue
-        for what, fn, syms in sl["calls"]({"FK": FK, "NT": NT, "PL": PL}, fe):
+        mods = {"FK": FK, "NT": NT, "PL": PL, "L": L, "LS": LS, "M": M}
+        for what, fn, syms in sl["calls"](mods, fe):
             r = {}
             if has:
                 if args.check:
@@ -229,7 +287,9 @@ def main(argv=None) -> int:
                   f"{r['launches']:.0f} launches, {r['kernel_ms']:.6f} ms{span}"
                   + (f"; plain version {r['plain_ms']:.3f} ms" if has else ""), flush=True)
         if has:
-            res["resources"] = kernel_resources(CK._so_path(sl["source"]))
+            srcs = sl["source"] if isinstance(sl["source"], tuple) else (sl["source"],)
+            res["resources"] = {k: v for src in srcs
+                                for k, v in kernel_resources(CK._so_path(src)).items()}
             for k, v in sorted(res["resources"].items()):
                 print(f"  {k}: {v}", flush=True)
     print(json.dumps({"root": root, "device": smi, "slices": out}), flush=True)

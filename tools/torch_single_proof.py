@@ -5,8 +5,8 @@ compared in one run (parent, change, change, parent).
 
 The proof is chip_smoke.py's phase 5 native-IPA proof: prove_compliance on
 the statement of random.Random(seed) with blinds from
-random.Random(seed + 1), cold once, then warm `--proofs` times with a
-StageTimer. With `--batch B`, then chip_smoke.py's phase 7 lockstep batch
+random.Random(seed + 1), cold once and then warm `--proofs` times, each
+with a StageTimer. With `--batch B`, then chip_smoke.py's phase 7 lockstep batch
 (prove_compliance_batch on the statements of random.Random(seed + i), i <
 B, blinds from random.Random(seed + 1)), cold once and warm once with a
 StageTimer; each warm run also records the peak device memory it
@@ -16,8 +16,8 @@ under torch.profiler, restarted at every stage mark, and counts each
 stage's device operations (kernels, copies, fills) and their device time.
 Prints one JSON object as its last line: the checkout, the card
 (nvidia-smi's name and power limit), the kernels' build time, the keygen
-time, the cold proof's time, each warm proof's total and stage wall times
-in seconds, the SHA-256 of the proof and of the batch's proofs (equal
+time, the cold proof's time and stage wall times, each warm proof's total
+and stage wall times in seconds, the SHA-256 of the proof and of the batch's proofs (equal
 across checkouts whose proofs are byte-identical), and the counts.
 
 Usage: python3 tools/torch_single_proof.py [--root CHECKOUT] [--seed 7] [--proofs 3]
@@ -113,8 +113,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     T.compliance_proving_key(K)
     t_keygen = time.perf_counter() - t0
+    cold_timer = StageTimer("cuda")
     t0 = time.perf_counter()
-    _, _, proof = prove()
+    _, _, proof = prove(timer=cold_timer)
     t_cold = time.perf_counter() - t0
     def peak_reset():
         torch.cuda.synchronize()
@@ -133,7 +134,8 @@ def main(argv=None) -> int:
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
         print(f"{root}: warm proof {total:.3f} s", flush=True)
     out = {"root": root, "device": smi, "build_s": t_build, "keygen_s": t_keygen,
-           "cold_s": t_cold, "warm": warm, "proof_sha256": hashlib.sha256(proof).hexdigest()}
+           "cold_s": t_cold, "cold_stages": dict(cold_timer.stages), "warm": warm,
+           "proof_sha256": hashlib.sha256(proof).hexdigest()}
     if args.count_ops:
         ops = StageOps()
         prove(timer=ops)
