@@ -45,18 +45,21 @@ exit code and no result line:
      fixed-base table's 262,144 Fq lanes) and K10 (the numerators and
      denominators, its permutation and lookup entries), with the lanes 0,
      1 and p - 1, at a single proof's and a batch of 8's shapes, timed at
-     both (profiler); the NTT's kernel K11 (csrc/ntt.cu, phase_ntt) in all
-     four transforms at every k from 1 to 18 on both fields, on rows of 0,
-     1 and p - 1 and on a moved axis, and at the main path's calls (a
-     proof's iNTT of 12 columns at 2^13, the extension of a proof's and a
-     batch of 8's 12 advice columns at 2^16, a batch's coset iNTT, one Fq
-     shape), timed at each (profiler); the polynomial programs K12-K14
-     (csrc/poly.cu, phase_poly); and K15-K17 (phase_lookup): the lookups'
+     both (profiler); the NTT's kernel K11 (csrc/ntt.cu, phase_ntt), at
+     radix 4 and at radix 2, in all four transforms at every k from 1 to
+     18 on both fields, on rows of 0, 1 and p - 1, on a moved axis and on
+     rows that hold only their first elements (the rest read as zero),
+     and at the main path's calls (a proof's and a batch of 8's iNTT of
+     12 columns at 2^13, the extension of a proof's and a batch's 12
+     advice columns at 2^16 from their n / 8 coefficients, a batch's coset
+     iNTT, one Fq shape), timed at each (profiler); the polynomial
+     programs K12-K14 (csrc/poly.cu, phase_poly); and K15-K17 (phase_lookup): the lookups'
      permuted pairs (csrc/lookup_sort.cu) at a proof's 5 and a batch's 40
      rows of u = 8,183 on the compliance circuit's real compressed
      columns, the same with one entry moved out of the table (ok false),
      and random columns with heavy repeats, an all-equal column and rows
-     of 0 and p - 1; the Montgomery conversions (csrc/convert.cu) both
+     of 0 and p - 1 (the batch's rows are these three cases'), and at the
+     kernel's tile edges; the Montgomery conversions (csrc/convert.cu) both
      ways at a proof's (12, 8,192) and a batch's (8, 12, 8,192); the
      MSMs' window digits at a fixed-base chunk's 8 columns, chunks padded
      to 4, 2 and 1 columns, and keyed at the general MSMs' shapes; each
@@ -270,7 +273,8 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "eval_polys": ("k_eval_polys", "k_eval_reduce"),
     "linear_combo": ("k_linear_combo",),
     "synthetic_div": ("k_div_totals", "k_div_apply"),
-    "permute_pairs": ("k_lookup_keys", "k_lookup_rank", "k_lookup_merge"),
+    "permute_pairs": ("k_lookup_sort", "k_lookup_rank", "k_lookup_counts", "k_lookup_leftovers",
+                      "k_lookup_fill"),
     "from_mont": ("k_from_mont",),
     "msm_digits": ("k_msm_digits",),
 }
@@ -554,9 +558,9 @@ def phase_build():
     log(f"build: {len(outs)} sources with nvcc in {time.perf_counter() - t0:.2f} s")
     for name, out in outs.items():
         for line in out.splitlines():
-            fn = re.search(r"(k_[a-z0-9_]+?)(I((?:Lb[01]E)+)E)?E", line)
+            fn = re.search(r"(k_[a-z0-9_]+?)(I((?:L[bi]\d+E)+)E)?E", line)
             if "Compiling entry function" in line and fn:
-                args = re.findall(r"Lb([01])E", fn.group(3) or "")
+                args = re.findall(r"L[bi](\d+)E", fn.group(3) or "")
                 log(f"  {name}.cu: {fn.group(1)}" + (f"<{', '.join(args)}>" if args else ""))
             elif "registers" in line or "spill" in line:
                 log(f"  {name}.cu:   {line.strip()}")
@@ -1287,38 +1291,46 @@ def phase_grand_products(pk, gen, dev):
 
 NTT_SHAPES = (  # K11 at the main path's calls: (what, batch shape, k, inverse, coset, field)
     ("intt", (1, 12), K, True, None, "fp"),            # values_to_coeffs: a proof's 12 advice columns
-    ("coset_ntt", (1, 12), K + 3, False, 5, "fp"),     # to_ext: a proof's advice, zero-padded
+    ("coset_ntt", (1, 12), K + 3, False, 5, "fp"),     # to_ext: a proof's advice, n / 8 nonzero
     ("coset_ntt", (BATCH, 12), K + 3, False, 5, "fp"),  # to_ext: a batch's advice
     ("coset_intt", (BATCH, 1), K + 3, True, 5, "fp"),  # quotient_coeffs_batch: a batch's quotients
     ("intt", (2,), K, True, None, "fq"),               # one Fq shape
+    ("intt", (BATCH, 12), K, True, None, "fp"),        # values_to_coeffs: a batch's advice
 )
 
 
 def ntt_bound(rows: int, k: int, inverse: bool, coset, nonzero: int):
-    """K11's bound: each element read and written once (64 B each) and the
-    tables read once; the products the function needs on rows nonzero only
-    in their first `nonzero` elements (to_ext's padding): a radix-2
-    decimation in frequency's butterflies with a nonzero element, less the
-    one whose twiddle is 1 in each group (k n / 2 - (n - 1) on dense
-    rows), and the scales' (the forward coset's on the nonzero inputs, the
-    inverse's on every output)."""
+    """K11's bound: each input element read once (the rows' first
+    `nonzero`: to_ext passes only its coefficients) and each output
+    element written once (64 B each), and the tables read once; the
+    products the function needs on rows nonzero only in their first
+    `nonzero` elements: a radix-2 decimation in frequency's butterflies
+    with a nonzero element, less the one whose twiddle is 1 in each group
+    (k n / 2 - (n - 1) on dense rows), and the scales' (the forward coset's
+    on the nonzero inputs, the inverse's on every output)."""
     n = 1 << k
     tables = 32 * (n // 2 + (n if coset is not None else 1 if inverse else 0))
     # stage s: 2^(s-1) groups, each nonzero in its first min(nonzero, 2 d)
     # elements, pairs (i, i + d) with d = n / 2^s
     butterflies = sum((1 << s - 1) * (min(nonzero, n >> s) - 1) for s in range(1, k + 1))
     scale = n if inverse else (nonzero if coset is not None else 0)
-    return bound_ms(2 * 64 * rows * n + tables, rows * (butterflies + scale) * MM_IMADS)
+    return bound_ms(64 * rows * (nonzero + n) + tables, rows * (butterflies + scale) * MM_IMADS)
 
 
 def phase_ntt(gen, dev):
     """K11 (ntt_lm, csrc/ntt.cu) against its plain version (ntt.ntt_plain)
-    bit for bit: every k from 1 to 18 on both fields in all four
-    transforms; rows of 0, 1 (R mod p) and p - 1; a moved axis as ntt_mesh
-    passes it; then the main path's shapes (NTT_SHAPES; the coset NTTs'
-    inputs zero above n / 8, as to_ext pads them), each timed (profiler
-    device time, a call's launches summed) beside the plain version's
-    time. k = 0 and 19 raise on the card."""
+    bit for bit, each case at radix 4 and at radix 2
+    (ff_kernels.ntt_radix_log's two choices, each forced here): every k
+    from 1 to 18 on both fields in all four transforms; rows of 0, 1 (R mod
+    p) and p - 1; a moved axis as ntt_mesh passes it; rows that hold only
+    their first `nonzero` elements (the rest read as zero) against
+    ntt_plain of the rows padded with zeros: n / 8 (to_ext's: at radix 4
+    the kernel skips the butterflies of two zeros), n / 8 + 1, and 1, at k
+    = 4 and K + 3 on both fields; then the main path's shapes at the radix
+    ntt_radix_log picks (NTT_SHAPES; the forward coset NTTs on n / 8
+    nonzero inputs, as to_ext passes them), each timed (profiler device
+    time, a call's launches summed) beside the plain version's time. k = 0
+    and 19 raise on the card."""
     import torch
     from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L, ntt as NT
 
@@ -1326,30 +1338,48 @@ def phase_ntt(gen, dev):
              "coset_intt": (True, 5)}
     err = 0
 
-    def held(what, x, k, field, inverse, coset):
+    def held(what, x, k, field, inverse, coset, nonzero=None):
         nonlocal err
-        got = FK.ntt_lm(x, k, field, inverse, coset)
+        got = FK.ntt_lm(x, k, field, inverse, coset, nonzero)
+        if nonzero is not None:  # the plain version of the padded rows
+            x = torch.cat([x, x.new_zeros(x.shape[:-2] + ((1 << k) - nonzero, 16))], dim=-2)
         want, ms = once_ms(lambda: NT.ntt_plain(x, k, field, inverse, coset))
         err = max(err, compare(f"ntt[{what}]", (got,), (want,)))
         return ms
 
     t0 = time.perf_counter()
-    for field in ("fp", "fq"):
-        spec = L.FIELDS[field]
-        for k in range(1, FK.NTT_K_MAX + 1):
-            x = rows_fe(gen, (2 if k <= 16 else 1, 1 << k), spec, dev)
+    radix_log = FK.ntt_radix_log
+    try:  # each case at each of ntt_radix_log's two choices, forced
+        for logr in (2, 1):
+            FK.ntt_radix_log = lambda *_, logr=logr: logr
+            at = f"radix {1 << logr}"
+            for field in ("fp", "fq"):
+                spec = L.FIELDS[field]
+                for k in range(1, FK.NTT_K_MAX + 1):
+                    x = rows_fe(gen, (2 if k <= 16 else 1, 1 << k), spec, dev)
+                    for kind, (inverse, coset) in kinds.items():
+                        held(f"{kind}, {field}, k={k}, {at}", x, k, field, inverse, coset)
+                # rows of 0, 1 and p - 1, through one and two passes
+                for k in (10, K):
+                    x = torch.stack([torch.as_tensor(L.int_to_limbs(v), dtype=torch.int32,
+                                                     device=dev).expand(1 << k, 16)
+                                     for v in (0, spec.r, spec.modulus - 1)])
+                    for kind, (inverse, coset) in kinds.items():
+                        held(f"{kind}, {field}, k={k}, constant rows, {at}", x, k, field,
+                             inverse, coset)
+                for k in (4, K + 3):
+                    n = 1 << k
+                    for nonzero in (n // 8, n // 8 + 1, 1):
+                        x = rows_fe(gen, (2, nonzero), spec, dev)
+                        for kind in ("coset_ntt", "ntt"):
+                            held(f"{kind}, {field}, k={k}, {nonzero} nonzero, {at}", x, k,
+                                 field, *kinds[kind], nonzero)
+            # ntt_mesh's a.transpose(0, 1)
+            moved = rows_fe(gen, (1 << K, 3), L.FP, dev).transpose(0, 1)
             for kind, (inverse, coset) in kinds.items():
-                held(f"{kind}, {field}, k={k}", x, k, field, inverse, coset)
-        # rows of 0, 1 and p - 1, through one and two passes
-        for k in (10, K):
-            x = torch.stack([torch.as_tensor(L.int_to_limbs(v), dtype=torch.int32,
-                                             device=dev).expand(1 << k, 16)
-                             for v in (0, spec.r, spec.modulus - 1)])
-            for kind, (inverse, coset) in kinds.items():
-                held(f"{kind}, {field}, k={k}, constant rows", x, k, field, inverse, coset)
-    moved = rows_fe(gen, (1 << K, 3), L.FP, dev).transpose(0, 1)  # ntt_mesh's a.transpose(0, 1)
-    for kind, (inverse, coset) in kinds.items():
-        held(f"{kind}, moved axis", moved, K, "fp", inverse, coset)
+                held(f"{kind}, moved axis, {at}", moved, K, "fp", inverse, coset)
+    finally:
+        FK.ntt_radix_log = radix_log
     for k in (0, FK.NTT_K_MAX + 1):
         x = torch.zeros((1, 1 << k, 16), dtype=torch.int32, device=dev)
         try:
@@ -1357,26 +1387,25 @@ def phase_ntt(gen, dev):
         except ValueError:
             continue
         raise AssertionError(f"ntt_lm ran at k = {k}, outside 1 .. {FK.NTT_K_MAX}")
-    log(f"K11 ntt equal to its plain version at every k from 1 to {FK.NTT_K_MAX} on fp and fq "
-        f"in all four transforms, on constant rows of 0, 1 and p - 1 and on a moved axis; k = 0 "
-        f"and {FK.NTT_K_MAX + 1} refused ({time.perf_counter() - t0:.1f} s)")
+    log(f"K11 ntt equal to its plain version, at radix 4 and at radix 2, at every k from 1 to "
+        f"{FK.NTT_K_MAX} on fp and fq in all four transforms, on constant rows of 0, 1 and "
+        f"p - 1, on a moved axis and on rows of n / 8, n / 8 + 1 and 1 nonzero elements; k = 0 and "
+        f"{FK.NTT_K_MAX + 1} refused ({time.perf_counter() - t0:.1f} s)")
 
     shapes = {}
     for kind, batch, k, inverse, coset, field in NTT_SHAPES:
         n = 1 << k
-        x = rows_fe(gen, (*batch, n), L.FIELDS[field], dev)
-        nonzero = n
-        if coset is not None and not inverse:
-            x[..., n // 8:, :] = 0  # to_ext's zero padding
-            nonzero = n // 8
+        # to_ext passes its n / 8 coefficients; the rest of the row reads as zero
+        nonzero = n // 8 if coset is not None and not inverse else None
+        x = rows_fe(gen, (*batch, nonzero or n), L.FIELDS[field], dev)
         key = f"{kind} {field} {tuple(batch) + (n,)}"
         before = FK.ntt_lm.launches
-        plain = held(key, x, k, field, inverse, coset)
+        plain = held(key, x, k, field, inverse, coset, nonzero)
         per_call = FK.ntt_lm.launches - before
-        ms = per_call * kernel_ms("ntt", lambda: FK.ntt_lm(x, k, field, inverse, coset), 20,
-                                  per_call)
+        ms = per_call * kernel_ms("ntt", lambda: FK.ntt_lm(x, k, field, inverse, coset, nonzero),
+                                  20, per_call)
         rows = math.prod(batch)
-        bound = ntt_bound(rows, k, inverse, coset, nonzero)
+        bound = ntt_bound(rows, k, inverse, coset, nonzero or n)
         shapes[key] = dict(ms=ms, plain_ms=plain, bound=bound)
         log(f"K11 ntt {key:34s}: equal; {ms:.6f} ms a call of {per_call} launches (plain "
             f"{plain:.3f} ms, bound {bound[0]:.6f} ms by {bound[1]})")
@@ -1559,6 +1588,7 @@ def phase_poly(pk, gen, dev):
 
 LOOKUP_U = N - 9    # a k = 13 proof's usable rows: n less its 8 blinding rows and one
 LOOKUPS = 5         # the compliance circuit's lookups: K15's rows a proof
+LOOKUP_TILE = 1024  # K15's tile of positions (csrc/lookup_sort.cu kTile)
 CONVERT_COLS = 12   # K16 at a proof's advice commit: 12 columns of n coefficients
 # K17 at a fixed-base chunk's (columns, live columns): a full chunk, and chunks padded to
 # a power of two with zero columns (msm_fixed_multi's remainder)
@@ -1607,7 +1637,11 @@ def phase_lookup(pk, gen, seed: int, dev):
     9: the compliance circuit's real compressed columns, the same with one A
     entry moved out of the table (its ok flag false, the outputs still
     equal), and random columns with heavy repeats, an all-equal column and
-    rows of 0 and p - 1; K16 at a proof's (12, n) and a batch's
+    rows of 0 and p - 1 (the batch: these three cases' rows); at the kernel's tile edges (tiles of LOOKUP_TILE
+    positions): u below one tile, one tile and one tile and one on the real
+    columns, a run of one value across a tile edge of sorted A and of
+    sorted S, and a failing lookup whose missing value is the largest, in
+    the last tile; K16 at a proof's (12, n) and a batch's
     (8, 12, n), rows of 0, 1 and p - 1 among them, and on Fq; K17 at a
     fixed-base chunk's 8 columns and the padded 4-, 2- and 1-column chunks
     (packed keys), and keyed at the device IPA's 2 x n / 2 and a general
@@ -1649,20 +1683,50 @@ def phase_lookup(pk, gen, seed: int, dev):
         rand_a.append(mont(a))
         rand_s.append(mont(table))
     rand_a, rand_s = torch.stack(rand_a), torch.stack(rand_s)
+    # tile edges: in sorted A, about LOOKUP_TILE - 24 smaller values, then a
+    # run of 100 copies of one value across the edge; S holds 13 copies of
+    # the value at sorted place LOOKUP_TILE + 6 (12 in place of table values
+    # that A never takes), a run across its own edge; row 0 also holds a
+    # value above every table value but p - 1, missing, in the last tile.
+    # Only the first LOOKUP_U rows of S count: A draws from those.
+    tv = sorted(table[:LOOKUP_U])
+    run_s = tv[LOOKUP_TILE + 6]
+    edge_a, edge_s = [], []
+    for r in range(LOOKUPS):
+        a = ([tv[rng.randrange(LOOKUP_TILE - 124)] for _ in range(LOOKUP_TILE - 24)]
+             + [tv[LOOKUP_TILE - 100]] * 100 + [run_s] * 3)
+        a += [tv[rng.randrange(LOOKUP_TILE, LOOKUP_U)] for _ in range(N - len(a))]
+        rng.shuffle(a)
+        if r == 0:
+            a[rng.randrange(LOOKUP_U)] = tv[-2] + 1
+        srow = [run_s if v in tv[LOOKUP_TILE - 124: LOOKUP_TILE - 112] else v for v in table]
+        edge_a.append(mont(a))
+        edge_s.append(mont(srow))
+    edge_a, edge_s = torch.stack(edge_a), torch.stack(edge_s)
     cases = {"real": (real_a, real_s), "one entry out": (bad_a, real_s),
-             "random repeats": (rand_a, rand_s)}
-    k15 = {}
+             "random repeats": (rand_a, rand_s), "tile edges": (edge_a, edge_s)}
+    k15, per_call = {}, set()
     for what, (a, s) in cases.items():
+        before = FK.permute_pairs_lm.launches
         (ap, sp, ok), plain = held(f"permute_pairs[{what}]",
                                    lambda a=a, s=s: FK.permute_pairs_lm(a, s, LOOKUP_U))
-        want_ok = [what != "one entry out" or r != 0 for r in range(LOOKUPS)]
+        per_call.add(FK.permute_pairs_lm.launches - before)
+        bad = {"one entry out", "tile edges"}
+        want_ok = [what not in bad or r != 0 for r in range(LOOKUPS)]
         if ok.tolist() != want_ok:
             raise AssertionError(f"permute_pairs[{what}]: ok flags {ok.tolist()}, not {want_ok}")
         k15[what] = plain
-    # a batch: every case's rows in one call, BATCH LOOKUPS rows
-    reps = BATCH * LOOKUPS // (3 * LOOKUPS) + 1
-    batch_a = torch.cat([c[0] for c in cases.values()] * reps)[: BATCH * LOOKUPS]
-    batch_s = torch.cat([c[1] for c in cases.values()] * reps)[: BATCH * LOOKUPS]
+    for u in (LOOKUP_TILE - 24, LOOKUP_TILE, LOOKUP_TILE + 1):
+        held(f"permute_pairs[real, u = {u}]", lambda u=u: FK.permute_pairs_lm(real_a, real_s, u))
+    if len(per_call) != 1:
+        raise AssertionError(f"permute_pairs: {sorted(per_call)} launches a call")
+    launches = per_call.pop()
+    # a batch: the real, one-entry-out and random-repeats rows repeated in
+    # one call, BATCH LOOKUPS rows (the tile edges are held above alone)
+    timed = [cases[w] for w in ("real", "one entry out", "random repeats")]
+    reps = -(-BATCH // len(timed))
+    batch_a = torch.cat([c[0] for c in timed] * reps)[: BATCH * LOOKUPS]
+    batch_s = torch.cat([c[1] for c in timed] * reps)[: BATCH * LOOKUPS]
     _, k15["batch"] = held("permute_pairs[batch]",
                            lambda: FK.permute_pairs_lm(batch_a, batch_s, LOOKUP_U))
 
@@ -1670,8 +1734,7 @@ def phase_lookup(pk, gen, seed: int, dev):
         """The rows' A and S read and A' and S' written once, against the
         keys' 2 R u products out of Montgomery form (A' and S' are input
         elements, copied back) and a comparison sort's 2 R u log2 u
-        comparisons of SORT_OPS word subtractions (the counting rank does
-        u^2)."""
+        comparisons of SORT_OPS word subtractions."""
         u = LOOKUP_U
         return bound_ms(4 * R * u * 64 + R, 2 * R * u * MM_IMADS
                         + 2 * R * u * math.log2(u) * SORT_OPS)
@@ -1680,16 +1743,19 @@ def phase_lookup(pk, gen, seed: int, dev):
     shapes = {}
     for what, (a, s) in (("proof", cases["real"]), ("batch", (batch_a, batch_s))):
         R = a.shape[0]
-        ms = 3 * kernel_ms("permute_pairs", lambda a=a, s=s: FK.permute_pairs_lm(a, s, LOOKUP_U),
-                           10, 3)
+        ms = launches * kernel_ms("permute_pairs",
+                                  lambda a=a, s=s: FK.permute_pairs_lm(a, s, LOOKUP_U), 10,
+                                  launches)
         plain = k15["real" if what == "proof" else "batch"]
         shapes[what] = dict(ms=ms, plain_ms=plain, bound=lookup_bound(R), R=R)
-        log(f"K15 permute_pairs   at ({R}, {N}), u={LOOKUP_U}: equal; {ms:.6f} ms a call of 3 "
-            f"launches (plain {plain:.3f} ms, bound {shapes[what]['bound'][0]:.6f} ms by "
-            f"{shapes[what]['bound'][1]})")
+        log(f"K15 permute_pairs   at ({R}, {N}), u={LOOKUP_U}: equal; {ms:.6f} ms a call of "
+            f"{launches} launches (plain {plain:.3f} ms, bound {shapes[what]['bound'][0]:.6f} ms "
+            f"by {shapes[what]['bound'][1]})")
     out["permute_pairs"] = dict(err=err, **shapes["proof"], batch=shapes["batch"])
     log(f"K15 equal to its plain version on the real columns, one entry out (ok false), random "
-        f"repeats, an all-equal column and rows of 0 and p - 1, and a batch of {BATCH}")
+        f"repeats, an all-equal column and rows of 0 and p - 1, the tile edges (u = "
+        f"{LOOKUP_TILE - 24}, {LOOKUP_TILE}, {LOOKUP_TILE + 1}; runs across an edge of A and S; "
+        f"a missing value in the last tile, ok false) and a batch of {BATCH}")
 
     # K16
     consts = [torch.as_tensor(L.int_to_limbs(v), device=dev)

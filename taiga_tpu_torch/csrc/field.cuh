@@ -4,6 +4,10 @@
 // thread-group point add on it), and the element-major row loads and
 // stores of K8-K14 (grand_product.cu, ntt.cu, poly.cu).
 //
+// The Montgomery product comes in two forms with the same limbs: fe_mul,
+// generic CIOS on carry chains, and fe_mul_pasta, the same steps with the
+// reduction row written for the Pasta moduli's words in 64-bit sums.
+//
 // Replaces the in-kernel helpers of taiga_tpu/ops/ff_kernels.py
 // (_mm_cios, _madd, _msub, _mul15, _ec_add_proj_core). Memory layout is the
 // reference's limb-major one: a batch of B field elements is 16 rows of B
@@ -257,6 +261,67 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts
   for (int i = 0; i < kWords; i++) {
     mac_row(t, a, b.w[i]);
     mac_row(t, F.p, t[0] * F.n0);
+#pragma unroll
+    for (int j = 0; j < kWords + 1; j++) t[j] = t[j + 1];
+    t[kWords + 1] = 0;
+  }
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) r.w[j] = t[j];
+  return reduce_once(r, t[kWords], F);
+}
+
+// a b 2^-256 mod p for the two Pasta primes (both fields of kFields), p =
+// 2^254 + c with c < 2^126: fe_mul's CIOS step for step, so t holds the
+// same value after every row and the result has the same limbs, in 64-bit
+// sums (one 32 x 32 -> 64 multiply-add a word, where a PTX carry chain
+// needs an IMAD and an IADD3 for each half), with the row t += m p written
+// for p's words: p0 = 1 (m itself), p4 = p5 = p6 = 0, p7 = 2^30 (m << 30
+// and m >> 2 at words 7 and 8), and n0 = -p^-1 = 2^32 - 1, so m = -t0. A
+// row is 11 wide products where fe_mul's is 17
+// (tests/test_torch_ntt_kernel.py checks both moduli's words). K11
+// (csrc/ntt.cu) computes its products with it.
+__device__ __forceinline__ Fe fe_mul_pasta(const Fe& a, const Fe& b, const FieldConsts& F) {
+  uint32_t t[kWords + 2];
+#pragma unroll
+  for (int j = 0; j < kWords + 2; j++) t[j] = 0;
+  const uint32_t p1 = F.p.w[1], p2 = F.p.w[2], p3 = F.p.w[3];
+#pragma unroll
+  for (int i = 0; i < kWords; i++) {
+    const uint32_t bi = b.w[i];
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < kWords; j++) {
+      const uint64_t v = (uint64_t)a.w[j] * bi + t[j] + c;
+      t[j] = (uint32_t)v;
+      c = v >> 32;
+    }
+    uint64_t v = (uint64_t)t[kWords] + c;
+    t[kWords] = (uint32_t)v;
+    t[kWords + 1] += (uint32_t)(v >> 32);
+    const uint32_t m = 0u - t[0];
+    c = ((uint64_t)t[0] + m) >> 32;
+    v = (uint64_t)p1 * m + t[1] + c;
+    t[1] = (uint32_t)v;
+    c = v >> 32;
+    v = (uint64_t)p2 * m + t[2] + c;
+    t[2] = (uint32_t)v;
+    c = v >> 32;
+    v = (uint64_t)p3 * m + t[3] + c;
+    t[3] = (uint32_t)v;
+    c = v >> 32;
+#pragma unroll
+    for (int j = 4; j < 7; j++) {
+      v = (uint64_t)t[j] + c;
+      t[j] = (uint32_t)v;
+      c = v >> 32;
+    }
+    v = (uint64_t)t[7] + (m << 30) + c;
+    t[7] = (uint32_t)v;
+    c = v >> 32;
+    v = (uint64_t)t[8] + (m >> 2) + c;
+    t[8] = (uint32_t)v;
+    t[9] += (uint32_t)(v >> 32);
 #pragma unroll
     for (int j = 0; j < kWords + 1; j++) t[j] = t[j + 1];
     t[kWords + 1] = 0;

@@ -113,8 +113,8 @@ _ARGTYPES = {
         "taiga_lookup_terms": [_VP] * 8 + [_I64, _I64, ctypes.c_int, _VP],
     },
     "ntt": {
-        "taiga_ntt": [_VP, _I64, _I64, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _I64, ctypes.c_int,
-                      ctypes.c_int, _VP],
+        "taiga_ntt": [_VP, _I64, _I64, _I64, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, _I64,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP],
     },
     "poly": {
         "taiga_poly_tiles": [_I64],
@@ -126,6 +126,7 @@ _ARGTYPES = {
                                 _I64, ctypes.c_int, _VP],
     },
     "lookup_sort": {
+        "taiga_permute_pairs_scratch": [_I64, _I64],
         "taiga_permute_pairs": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _VP, _VP, _I64, _I64,
                                 ctypes.c_int, _VP],
     },
@@ -141,6 +142,8 @@ _ARGTYPES = {
     },
 }
 
+_RESTYPES = {"taiga_permute_pairs_scratch": _I64}  # every other function returns an int
+
 
 def _load(name: str) -> ctypes.CDLL:
     from . import limbs as L
@@ -150,7 +153,7 @@ def _load(name: str) -> ctypes.CDLL:
     so.taiga_set_field.restype = ctypes.c_int
     for fn, argtypes in _ARGTYPES[name].items():
         getattr(so, fn).argtypes = argtypes
-        getattr(so, fn).restype = ctypes.c_int
+        getattr(so, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
     for field, fid in FIELD_IDS.items():
         p = L.FIELDS[field].modulus
         words = (ctypes.c_uint32 * 8)(*[(p >> (32 * j)) & 0xFFFFFFFF for j in range(8)])

@@ -714,47 +714,70 @@ def lookup_terms_lm(a, s, ap, sp, beta, gamma):
 LINEAR_COMBO_MAX_C = 1536  # the columns K13 takes: 48 KB of weights (csrc/poly.cu kMaxComboC)
 NTT_K_MAX = 18  # the largest domain K11 takes, 2^18: two passes of 2^9 (csrc/ntt.cu)
 NTT_ONE_PASS_K = 10  # K11 runs k <= 10 in one launch, a larger k in two (csrc/ntt.cu kMaxLog)
+NTT_MIN_THREADS = 132 * 1024  # K11 takes radix 4 only where that keeps this many threads
 
 
-def ntt_lm(x, k: int, field: str = "fp", inverse: bool = False, coset: int | None = None):
+def ntt_radix_log(rows: int, k: int, nonzero: int) -> int:
+    """log2 of K11's radix for a call over `rows` rows of 2^k that hold
+    their first `nonzero` elements: 4 elements a thread (two stages a group
+    in registers) when the rows are zero-padded to at least 8 times their
+    length (the first group skips the butterflies of two zeros) and the
+    call keeps NTT_MIN_THREADS threads busy, else 2. On dense rows radix 2
+    measured faster at every shape of the prover, narrow or wide (PERF.md
+    section 6)."""
+    n = 1 << k
+    sparse = k >= 3 and 8 * nonzero <= n
+    return 2 if sparse and (rows * n) >> 2 >= NTT_MIN_THREADS else 1
+
+
+def ntt_lm(x, k: int, field: str = "fp", inverse: bool = False, coset: int | None = None,
+           nonzero: int | None = None):
     """K11: the NTT of (..., n, 16) Montgomery rows along the second-last
     axis, n = 2^k, natural order in and out; the inverse (w^-1 and n^-1)
     when `inverse`; over the coset g H with g = `coset` (the forward scales
-    its input by g^i, the inverse its output by g^-i). Two launches (a
-    four-step split, each pass in shared memory; the scales fused into the
-    first pass's loads and the last pass's stores), one for k <= 10, each
+    its input by g^i, the inverse its output by g^-i). With `nonzero`, x
+    holds only each row's first `nonzero` elements, (..., nonzero, 16), and
+    the rest of the 2^k read as zero (to_ext's padding, never built). Two
+    launches (a four-step split, each pass's stages in groups of two or one
+    in registers, ntt_radix_log's radix; the scales fused into the first
+    pass's loads and the last pass's stores), one for k <= 10, each
     counted. Any strides: a moved axis is read in place. Returns a
-    contiguous tensor of x's shape. On the card 1 <= k <= NTT_K_MAX."""
+    contiguous (..., n, 16) tensor. On the card 1 <= k <= NTT_K_MAX."""
     from . import ntt as NT  # ops/ntt.py holds the plain version and the tables
 
     if x.dim() < 2:
         raise ValueError(f"x: shape {tuple(x.shape)}, expected (..., n, 16)")
-    check_rows("x", x, *x.shape[:-2], 1 << k, NLIMBS)
+    n = 1 << k
+    given = n if nonzero is None else nonzero  # elements a row holds
+    if not 1 <= given <= n:
+        raise ValueError(f"ntt: nonzero = {nonzero} of n = {n}")
+    check_rows("x", x, *x.shape[:-2], given, NLIMBS)
     if not use_kernel(x):
-        return NT.ntt_plain(x, k, field, inverse, coset)
+        return NT.ntt_plain(x, k, field, inverse, coset, nonzero)
     if not 1 <= k <= NTT_K_MAX:
         raise ValueError(f"ntt: k = {k}, the kernel takes 1 .. {NTT_K_MAX}")
-    n = 1 << k
-    v = x if x.dim() == 3 else x.reshape((math.prod(x.shape[:-2]), n, NLIMBS))
+    lead = x.shape[:-2]
+    v = x if x.dim() == 3 else x.reshape((math.prod(lead), given, NLIMBS))
     if not _aligned_rows(v):
         v = v.contiguous()
     R = v.shape[0]
     out = torch.empty((R, n, NLIMBS), dtype=x.dtype, device=x.device)
     if R == 0:
-        return out.view(x.shape)
+        return out.view(lead + (n, NLIMBS))
     so = CK.lib("ntt")
     launches = 1 if k <= NTT_ONE_PASS_K else 2
     scratch = torch.empty((R, n, NLIMBS // 2) if launches > 1 else (0,), dtype=x.dtype,
                           device=x.device)
     tw, pre, post = NT.kernel_tables(k, field, inverse, coset, str(x.device))
-    CK.check(so.taiga_ntt(_ptr(v), v.stride(0), v.stride(1), _ptr(out),
+    CK.check(so.taiga_ntt(_ptr(v), v.stride(0), v.stride(1), given, _ptr(out),
                           _ptr(scratch) if launches > 1 else None, _ptr(tw),
                           None if pre is None else _ptr(pre),
                           None if post is None else _ptr(post),
                           int(post is not None and post.shape[0] > 1), R, k,
+                          ntt_radix_log(R, k, given),
                           CK.FIELD_IDS[field], CK.stream_ptr(x.device)), "ntt")
     ntt_lm.launches += launches
-    return out.view(x.shape)
+    return out.view(lead + (n, NLIMBS))
 
 
 def _lead_rows(t: torch.Tensor, lead: tuple, tail: tuple) -> torch.Tensor:
@@ -884,14 +907,19 @@ def _aligned_copy(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+PERMUTE_PAIRS_LAUNCHES = 5  # K15's launches a call (csrc/lookup_sort.cu)
+
+
 def permute_pairs_lm(a_v, s_v, u: int):
     """K15: the lookups' permuted pairs over the first u rows of R lookups'
     (R, n, 16) canonical Montgomery columns A and S -> A' and S' (R, u, 16)
     Montgomery and each lookup's ok flag (R,) bool, by value the JAX
-    package's permute_pairs_device (ops/lookup_sort.py's module note). Three
-    launches for all R lookups (the keys with from_mont fused, the counting
-    rank, the merge and fill, which copies A' and S' from the inputs). The
-    first u rows are read through the strides, in place."""
+    package's permute_pairs_device (ops/lookup_sort.py's module note).
+    PERMUTE_PAIRS_LAUNCHES launches for all R lookups, each spread over a
+    block a (row, tile of 1,024): the tiles sorted (from_mont fused), each
+    key's rank by co-rank searches into the other tiles, the tiles' counts,
+    the leftovers placed, and A' and S' copied from the inputs. The first u
+    rows are read through the strides, in place."""
     from . import lookup_sort as LS  # ops/lookup_sort.py holds the plain version
 
     for nm, t in (("a_v", a_v), ("s_v", s_v)):
@@ -911,14 +939,14 @@ def permute_pairs_lm(a_v, s_v, u: int):
     ok = torch.empty((R,), dtype=torch.bool, device=a_v.device)
     if R == 0:
         return ap, sp, ok
-    # keys and sorted keys (8 words an element), their source indices,
-    # the leftovers' indices and the consumed flags
-    scratch = torch.empty((R * u * (4 * NLIMBS // 2 + 4),), dtype=a_v.dtype, device=a_v.device)
-    CK.check(CK.lib("lookup_sort").taiga_permute_pairs(
+    so = CK.lib("lookup_sort")
+    scratch = torch.empty((so.taiga_permute_pairs_scratch(R, u),), dtype=a_v.dtype,
+                          device=a_v.device)
+    CK.check(so.taiga_permute_pairs(
         _ptr(av), av.stride(0), av.stride(1), _ptr(sv), sv.stride(0), sv.stride(1), _ptr(ap),
         _ptr(sp), _ptr(ok), _ptr(scratch), R, u, CK.FIELD_IDS["fp"], CK.stream_ptr(a_v.device)),
         "permute_pairs")
-    permute_pairs_lm.launches += 3
+    permute_pairs_lm.launches += PERMUTE_PAIRS_LAUNCHES
     return ap, sp, ok
 
 

@@ -2,12 +2,14 @@
 
 Port of taiga_tpu/ops/ntt.py. On a CUDA tensor every transform (ntt,
 intt, coset_ntt, coset_intt) is K11, ff_kernels.ntt_lm (csrc/ntt.cu): a
-four-step split into two shared-memory passes (one for k <= 10), the
-coset and n^-1 scales fused into its loads and stores, its twiddles from
-one compact table (twiddle_table). The plain version, ntt_plain, is the
-reference's constant-geometry (Pease) DIF NTT with its final bit reversal
-and the coset scale as a separate product, limb-major in plain torch ops;
-the CPU runs it. The four-step NTT over a process group (ntt_mesh) runs
+four-step split into two passes (one for k <= 10), each line's stages in
+groups in registers at radix 4 or 2 (ff_kernels.ntt_radix_log picks by
+the call's size), the coset and n^-1 scales fused into its loads and
+stores, its twiddles from one compact table (twiddle_table); a
+zero-padded input (coset_ntt's `nonzero`) is never built. The plain
+version, ntt_plain, is the reference's constant-geometry (Pease) DIF NTT
+with its final bit reversal and the coset scale as a separate product,
+limb-major in plain torch ops; the CPU runs it. The four-step NTT over a process group (ntt_mesh) runs
 its sub-transforms through the same wrapper.
 
 Bit-exact vs taiga_tpu.ops.ntt (tests/test_torch_ntt.py,
@@ -113,14 +115,20 @@ def _coset_powers_dev(k: int, field: str, g: int, inverse: bool, device: str):
     return torch.as_tensor(_coset_powers(k, field, g, inverse), device=torch.device(device))
 
 
-def ntt_plain(x, k: int, field: str = "fp", inverse: bool = False, coset: int | None = None):
+def ntt_plain(x, k: int, field: str = "fp", inverse: bool = False, coset: int | None = None,
+              nonzero: int | None = None):
     """K11's plain version (ff_kernels.ntt_lm): the transform of (..., n,
     16) Montgomery rows, n = 2^k, as the reference computes it: the coset
     scale by g^i first (forward, g = `coset`), the constant-geometry Pease
     stages, the bit-reversal gather and the inverse's n^-1
     (taiga_tpu/ops/ntt.py::_ntt_fixed_jit), then the scale by g^-i
-    (inverse), each in plain torch ops."""
+    (inverse), each in plain torch ops. With `nonzero`, x is (...,
+    nonzero, 16) and is padded with zeros to n first."""
     spec = _spec(field)
+    if nonzero is not None:
+        padded = x.new_zeros(x.shape[:-2] + (1 << k, L.NLIMBS))
+        padded[..., :nonzero, :] = x
+        x = padded
     if coset is not None and not inverse:
         x = L.mont_mul(x, _coset_powers_dev(k, field, coset, False, str(x.device)), spec)
     x = _pease(x, k, field, inverse)
@@ -204,9 +212,10 @@ def intt(evals, k: int, field: str = "fp"):
     return FK.ntt_lm(evals, k, field, inverse=True)
 
 
-def coset_ntt(coeffs, k: int, field: str = "fp", g: int = 5):
-    """Evaluations over the coset g*H (H = 2^k subgroup)."""
-    return FK.ntt_lm(coeffs, k, field, coset=g)
+def coset_ntt(coeffs, k: int, field: str = "fp", g: int = 5, nonzero: int | None = None):
+    """Evaluations over the coset g*H (H = 2^k subgroup); with `nonzero`,
+    of the (..., nonzero, 16) coefficients padded with zeros to 2^k."""
+    return FK.ntt_lm(coeffs, k, field, coset=g, nonzero=nonzero)
 
 
 def coset_intt(evals, k: int, field: str = "fp", g: int = 5):

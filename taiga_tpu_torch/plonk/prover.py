@@ -163,9 +163,7 @@ def _ext_domain_tables(k: int):
         for r in rows:
             base[r] = 1
         coeffs = ntt.intt(torch.as_tensor(L.FP.array_to_mont(base)), k, "fp")
-        padded = torch.zeros((n * EXT_FACTOR, L.NLIMBS), dtype=L.DTYPE)
-        padded[:n] = coeffs
-        return ntt.coset_ntt(padded, ke, "fp").numpy()
+        return ntt.coset_ntt(coeffs, ke, "fp", nonzero=n).numpy()
 
     l0 = indicator_ext([0])
     llast = indicator_ext([usable])
@@ -244,11 +242,9 @@ class ProverPipeline:
         return ntt.intt(vals_mont, self.k, "fp")
 
     def to_ext(self, coeffs_mont):
-        n = self.n
-        shape = tuple(coeffs_mont.shape[:-2]) + (n * EXT_FACTOR, L.NLIMBS)
-        padded = torch.zeros(shape, dtype=L.DTYPE, device=coeffs_mont.device)
-        padded[..., :n, :] = coeffs_mont
-        return ntt.coset_ntt(padded, self.k + 3, "fp")
+        """(..., n, 16) coefficients -> their (..., 8n, 16) evaluations over
+        the extended coset; the padding to 8n is read as zeros, not built."""
+        return ntt.coset_ntt(coeffs_mont, self.k + 3, "fp", nonzero=self.n)
 
     # --- commitments ---------------------------------------------------
     def srs_table(self):

@@ -6,7 +6,9 @@ the JAX package, with exact equality:
       permute_pairs_device, every case a row of one batched call: passing
       and failing lookups (the ok flags included), heavy repeats,
       theta-compressed full 256-bit keys, an all-equal column, rows of 0
-      and p - 1, at u = n - 9 (not a power of two);
+      and p - 1, at u = n - 9 (not a power of two); and at the kernel's
+      tile edges (u = 1,023, 1,024, 1,025) with runs across an edge and a
+      missing value in the last tile;
   K16 from_mont_lm (plain: ops/limbs.py's from_mont) against
       taiga_tpu.ops.limbs.from_mont on both fields, with 0, 1, R mod p and
       p - 1 and one or two leading batch axes;
@@ -92,6 +94,36 @@ def test_permute_pairs_lm_matches_reference():
     # the module's entry point routes to the wrapper
     for g, r in zip(got, TLS.permute_pairs_device(ta, ts, U)):
         assert torch.equal(g, r)
+
+
+TILE = 1024  # K15's tile of positions (csrc/lookup_sort.cu kTile)
+
+
+@pytest.mark.parametrize("u", [TILE - 1, TILE, TILE + 1])
+def test_permute_pairs_lm_tile_edges(u):
+    """K15's tile edges, u below one tile, one tile and one tile and one,
+    in one batched call a u against the reference: a run of one value
+    across the tile edge of sorted A and of sorted S (S's input order
+    reversed below it), a failing lookup whose missing value is the
+    largest, in the last tile, and random repeats."""
+    rng = random.Random(u)
+    n = TILE + 8
+    d = sorted(rng.getrandbits(254) for _ in range(n))
+    table = d[: TILE - 20][::-1] + [d[TILE - 20]] * 28
+    run = [d[rng.randrange(TILE - 40)] for _ in range(TILE - 40)] + [d[TILE - 20]] * 48
+    rng.shuffle(run)
+    fail = list(run)
+    fail[rng.randrange(TILE - 1)] = d[-1] + 1
+    rows = [(run, table), (fail, table), ([table[rng.randrange(TILE - 1)] for _ in range(n)], table)]
+    a, s = _mont([r[0] for r in rows]), _mont([r[1] for r in rows])
+    want = JLS.permute_pairs_device(jnp.asarray(a.astype(np.uint32)),
+                                    jnp.asarray(s.astype(np.uint32)), u)
+    got = FK.permute_pairs_lm(torch.as_tensor(a.astype(np.int32)),
+                              torch.as_tensor(s.astype(np.int32)), u)
+    for g, w, what in zip(got[:2], want[:2], ("A'", "S'")):
+        np.testing.assert_array_equal(g.numpy().astype(np.int64), np.asarray(w).astype(np.int64),
+                                      err_msg=what)
+    assert got[2].tolist() == np.asarray(want[2]).tolist() == [True, False, True]
 
 
 def _conv_vals(field: str, shape):

@@ -11,13 +11,19 @@ of 8. A later kernel slice adds a row.
                   K10 perm_terms_lm / lookup_terms_lm at a proof's and a
                   batch's shapes (P permutation columns in chunks of
                   CHUNK, LOOKUPS lookups a proof, rows of 2^13).
-  ntt             the public transforms of ops/ntt.py: a proof's 12 advice
-                  columns into coefficients (intt, (1, 12, 2^13)), their
+  ntt             the public transforms of ops/ntt.py: a proof's and a
+                  batch's 12 advice columns into coefficients (intt,
+                  (1, 12, 2^13) and (8, 12, 2^13)), their
                   extension (coset_ntt, (1, 12, 2^16)) and a batch's
-                  ((8, 12, 2^16)), the inputs zero above n / 8 as to_ext
-                  pads them, and a batch's quotient back (coset_intt,
-                  (8, 1, 2^16)). A checkout before K11 runs them as plain
-                  torch ops, and is timed all the same.
+                  ((8, 12, 2^16)) as to_ext calls it: n / 8 coefficients
+                  a row through coset_ntt's `nonzero`, or, in a checkout
+                  whose coset_ntt has none, the rows padded with zeros
+                  beforehand (the padding not timed), and a batch's
+                  quotient back (coset_intt, (8, 1, 2^16)), and an Fq
+                  iNTT ((2, 2^13)); then, where the
+                  checkout chooses K11's radix (FK.ntt_radix_log), each of
+                  them at each radix, 4 and 2. A checkout before K11
+                  runs them as plain torch ops, and is timed all the same.
   poly            the public programs of ops/poly.py at a proof's and a
                   batch's shapes (B = 1, 8): the query evaluations
                   (eval_polys_at_points, (B, C, 2^13) at (B, Q) points),
@@ -101,17 +107,41 @@ def grand_product_calls(mods, fe):
 
 
 def ntt_calls(mods, fe):
-    NT = mods["NT"]
+    import inspect
+
+    import torch
+
+    FK, NT = mods["FK"], mods["NT"]
+    nonzero = "nonzero" in inspect.signature(NT.coset_ntt).parameters
     calls = []
-    for fname, batch, k in (("intt", (1, 12), K), ("coset_ntt", (1, 12), K + 3),
-                            ("coset_ntt", (BATCH, 12), K + 3), ("coset_intt", (BATCH, 1), K + 3)):
+    for fname, batch, k, field in (("intt", (1, 12), K, "fp"), ("intt", (BATCH, 12), K, "fp"),
+                                   ("coset_ntt", (1, 12), K + 3, "fp"),
+                                   ("coset_ntt", (BATCH, 12), K + 3, "fp"),
+                                   ("coset_intt", (BATCH, 1), K + 3, "fp"),
+                                   ("intt", (2,), K, "fq")):
         n = 1 << k
-        x = fe(*batch, n)
-        if fname == "coset_ntt":
-            x[..., n // 8:, :] = 0  # to_ext's zero padding
         fn = getattr(NT, fname)
-        calls.append((f"{fname} {batch + (n,)}", lambda fn=fn, x=x, k=k: fn(x, k, "fp"),
-                      ("k_ntt_pass",)))
+        if fname != "coset_ntt":
+            x = fe(*batch, n)
+            call = (lambda fn=fn, x=x, k=k, f=field: fn(x, k, f))
+        elif nonzero:  # to_ext: n / 8 coefficients, the rest read as zero
+            x = fe(*batch, n // 8)
+            call = (lambda fn=fn, x=x, k=k, f=field: fn(x, k, f, nonzero=x.shape[-2]))
+        else:  # a parent's to_ext: the rows padded with zeros first
+            x = torch.cat([fe(*batch, n // 8), fe(*batch, n - n // 8).zero_()], dim=-2)
+            call = (lambda fn=fn, x=x, k=k, f=field: fn(x, k, f))
+        calls.append((f"{fname} {field} {batch + (n,)}", call, ("k_ntt_pass",)))
+    if hasattr(FK, "ntt_radix_log"):  # each call at each radix
+        base = list(calls)
+        for logr in (2, 1):
+            for what, call, syms in base:
+                def at_radix(call=call, logr=logr):
+                    keep, FK.ntt_radix_log = FK.ntt_radix_log, (lambda *_: logr)
+                    try:
+                        return call()
+                    finally:
+                        FK.ntt_radix_log = keep
+                calls.append((f"{what} radix {1 << logr}", at_radix, syms))
     return calls
 
 
@@ -176,7 +206,8 @@ def lookup_calls(mods, fe):
         cols = fe(B, 12, N)
         calls += [
             (f"permute_pairs B={B}", lambda a=a, s=s: LS.permute_pairs_device(a, s, u),
-             ("k_lookup_keys", "k_lookup_rank", "k_lookup_merge")),
+             ("k_lookup_keys", "k_lookup_sort", "k_lookup_rank", "k_lookup_counts",
+              "k_lookup_leftovers", "k_lookup_merge", "k_lookup_fill")),
             (f"from_mont advice B={B}", lambda x=cols: from_mont(x), ("k_from_mont",)),
         ]
     sc = fe(8, N)
@@ -200,7 +231,8 @@ SLICES = {  # name: (the wrapper that marks the kernels, source, calls; a checko
 def profiled(fn, reps: int, syms) -> dict:
     """fn() run reps times under torch.profiler: per call, its device
     operations and their summed device time, ms, and the launches and time
-    of the kernels named by syms, with their fastest and slowest launch."""
+    of the kernels named by syms, with their fastest and slowest launch and
+    each named kernel's time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -213,9 +245,11 @@ def profiled(fn, reps: int, syms) -> dict:
         torch.cuda.synchronize()
     ev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
     own = [e.duration_ns() / 1e6 for e in ev if any(s in e.name() for s in syms)]
+    by_kernel = {s: sum(e.duration_ns() for e in ev if s in e.name()) / 1e6 / reps for s in syms}
     return {"ops": len(ev) / reps, "device_ms": sum(e.duration_ns() for e in ev) / 1e6 / reps,
             "launches": len(own) / reps, "kernel_ms": sum(own) / reps,
-            "min": min(own, default=None), "max": max(own, default=None)}
+            "min": min(own, default=None), "max": max(own, default=None),
+            "by_kernel": {s: ms for s, ms in by_kernel.items() if ms}}
 
 
 def main(argv=None) -> int:
@@ -286,6 +320,9 @@ def main(argv=None) -> int:
                   f"operations, {r['device_ms']:.6f} ms device time a call; its kernels "
                   f"{r['launches']:.0f} launches, {r['kernel_ms']:.6f} ms{span}"
                   + (f"; plain version {r['plain_ms']:.3f} ms" if has else ""), flush=True)
+            if len(r["by_kernel"]) > 1:
+                print("    " + ", ".join(f"{k} {v:.6f}" for k, v in r["by_kernel"].items()),
+                      flush=True)
         if has:
             srcs = sl["source"] if isinstance(sl["source"], tuple) else (sl["source"],)
             res["resources"] = {k: v for src in srcs
