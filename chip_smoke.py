@@ -249,6 +249,9 @@ MAX_K2_DEVICE_IPA = 400  # K2 launches a warm device-IPA proof may make
 IMAD_PER_S = 67e12 / 4  # 32-bit integer multiply-adds/s, see bound_ms()
 HBM_BYTES_PER_S = 3.35e12
 MM_IMADS = 2 * 2 * 64 + 8  # one 8x32-bit CIOS product: lo+hi of 128 word products, 8 m's
+WIDE_IMADS = 2 * 64  # one 256 x 256-bit product left unreduced: lo+hi of 64 word products
+REDC_IMADS = MM_IMADS - WIDE_IMADS  # one Montgomery reduction: 8 rows of 8 word products, 8 m's
+EVAL_RUN = 8  # K12's terms of a dot product summed unreduced before one reduction
 KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "mont_mul": ("k_mont_mul",),
     "ec_add_proj": ("k_ec_add_proj",),
@@ -266,7 +269,8 @@ KERNEL_SYMBOLS = {  # each kernel's device function, as the profiler names it
     "poseidon": ("k_poseidon_permute",),
     "poseidon_sponge": ("k_poseidon_sponge",),
     "mont_inv": ("k_mont_inv",),
-    "mont_cumprod": ("k_cumprod_totals", "k_cumprod_apply"),
+    "mont_cumprod": ("k_cumprod_cluster", "k_cumprod_totals", "k_cumprod_apply"),
+    "powers": ("k_powers",),
     "perm_terms": ("k_perm_terms",),
     "lookup_terms": ("k_lookup_terms",),
     "ntt": ("k_ntt_pass",),
@@ -1161,7 +1165,21 @@ def phase_bucket_weights(gen, dev):
 
 
 INV_STAGES = 254 + 75  # K8's chain: p - 2's squarings and its other set bits (both fields)
-SCAN_EDGE_N = (1, 2, 7, 1024, 1025, 2049)  # K9's row lengths off and across its 1,024-lane tiles
+# K9's row lengths: a one-block tile of 512 (4 a thread) less one, at and
+# past it, the old tiles' 1,024 edges, a proof's row plus one, the longest
+# row of one launch (a cluster of 16 blocks, 8 a thread: ff_kernels
+# CUMPROD_ONE_LAUNCH_N) and one more (the two passes)
+SCAN_EDGE_N = (1, 2, 7, 511, 512, 513, 1024, 1025, 2049, 8193, 16384, 16385)
+# K9's powers: rows about the main path's T = 128 (ff_kernels.powers_table_log
+# of 8,191: 7), the x3 evaluation's 8,191, K14's 8,193, and T^2 + 1 = 16,385
+POWERS_EDGE_N = (1, 2, 127, 128, 129, 8191, 8193, 16385)
+# K9's powers at the main path's calls, (what, points, n, packed): a proof's
+# query evaluations (6 points) and x3 evaluation (1), both K12's packed
+# tables, and K14's limbs tables (6 points of 2^13 + 1); a batch's the same
+# for 8 proofs
+POWERS_SHAPES = (("query evals", 6, N - 1, True), ("x3", 1, N - 1, True),
+                 ("K14 tables", 6, N + 1, False), ("query evals", 6 * BATCH, N - 1, True),
+                 ("x3", BATCH, N - 1, True), ("K14 tables", 6 * BATCH, N + 1, False))
 
 
 def rows_fe(gen, shape, spec, dev, edge_at=0):
@@ -1184,9 +1202,11 @@ def phase_grand_products(pk, gen, dev):
     proof and of a lockstep batch of BATCH (C = proofs x chunks or x
     lookups rows of n = 2^K) and at the edges: the lanes 0, 1 and p - 1; K8
     on both fields and at batch_inv's (1, 16) in Fq; K9 forward and reverse
-    with a zero in a row, at SCAN_EDGE_N, at poly.powers' expanded layout
-    and at the fixed-base table's 262,144 lanes in Fq. Then each timed at
-    both shapes (the profiler's device time, a call's launches summed)."""
+    with a zero in a row, at SCAN_EDGE_N, at an expanded row (stride 0) and
+    at the fixed-base table's 262,144 lanes in Fq; K9's powers entry at
+    POWERS_EDGE_N on both fields, limbs and packed. Then each timed at both
+    shapes (the profiler's device time, a call's launches summed, counted
+    by the wrappers), and the powers at POWERS_SHAPES."""
     import torch
     from taiga_tpu_torch.ops import ff_kernels as FK, limbs as L
     from taiga_tpu_torch.plonk.circuit import PERM_CHUNK
@@ -1212,7 +1232,7 @@ def phase_grand_products(pk, gen, dev):
         one = a[:1]
         held(f"mont_inv[{field}, 1 lane]", FK.mont_inv_lm(one, field),
              lambda: FK.mont_inv_lm(one, field))
-    # K9: row lengths at and across the tiles' edges, a zero in a row
+    # K9: row lengths at and across the tiles' and clusters' edges, a zero in a row
     for field in ("fp", "fq"):
         for m in SCAN_EDGE_N:
             a = rows_fe(gen, (3, m), L.FIELDS[field], dev)
@@ -1221,12 +1241,40 @@ def phase_grand_products(pk, gen, dev):
                 held(f"mont_cumprod[{field}, 3 x {m}, reverse={rev}]",
                      FK.mont_cumprod_lm(a, field, rev), lambda: FK.mont_cumprod_lm(a, field, rev))
     x = rows_fe(gen, (3,), L.FP, dev)
-    pw = x.expand(n - 1, 3, 16).movedim(0, -2)  # poly.powers' view: stride 0 along the scan
+    pw = x.expand(n - 1, 3, 16).movedim(0, -2)  # an expanded row: stride 0 along the scan
     held("mont_cumprod[powers' layout]", FK.mont_cumprod_lm(pw), lambda: FK.mont_cumprod_lm(pw))
     zs = rows_fe(gen, (1, 32 * n), L.FQ, dev)  # fixed_base_table's batch_inv: W x N lanes
     zs[0, :3] = zs[0, 3:6]  # nonzero, as the table's z
     held("mont_cumprod[fq, batch_inv]", FK.mont_cumprod_lm(zs, "fq"),
          lambda: FK.mont_cumprod_lm(zs, "fq"))
+    # K9's powers entry: the points 0, 1 and p - 1 and a random one, limbs and packed
+    for field in ("fp", "fq"):
+        pts = rows_fe(gen, (4,), L.FIELDS[field], dev)
+        for m in POWERS_EDGE_N:
+            for packed in (False, True):
+                held(f"powers[{field}, 4 x {m}{', packed' if packed else ''}]",
+                     FK.powers_lm(pts, m, field, packed),
+                     lambda: FK.powers_lm(pts, m, field, packed))
+    pw_res = {}
+    for what, Q, m, packed in POWERS_SHAPES:
+        pts = rows_fe(gen, (Q,), L.FP, dev)
+
+        def fn(pts=pts, m=m, packed=packed):
+            return FK.powers_lm(pts, m, "fp", packed)
+
+        plain = held(f"powers[{what}, {Q} x {m}{', packed' if packed else ''}]", fn(), fn)
+        before = FK.powers_lm.launches
+        fn()
+        per_call = FK.powers_lm.launches - before
+        ms = per_call * kernel_ms("powers", fn, 20, per_call)
+        # Q n elements written (32 B packed, 64 as limbs), Q read, Q (n - 1) products
+        words = 8 if packed else 16
+        bound = bound_ms(4 * words * Q * m + fe * Q, MM_IMADS * Q * (m - 1))
+        pw_res[f"{what} Q={Q}, n={m}"] = dict(ms=ms, plain_ms=plain, bound=bound,
+                                             launches=per_call, B=(Q, m, words))
+        log(f"powers             {what:12s} ({Q}, {m}{', packed' if packed else ''}): equal; "
+            f"{ms:.6f} ms a call of {per_call} launch (plain {plain:.3f} ms, bound "
+            f"{bound[0]:.6f} ms by {bound[1]})")
 
     # the grand products' shapes: one proof (the row) and a batch (its batch_ keys)
     for B in (1, BATCH):
@@ -1253,7 +1301,9 @@ def phase_grand_products(pk, gen, dev):
         tot = rows[:, -1].contiguous()
         i_plain = held(f"mont_inv[B={B}]", FK.mont_inv_lm(tot), lambda: FK.mont_inv_lm(tot))
 
-        per_call = 2 if n > 1024 else 1  # K9's launches: tile totals, then the scan
+        before = FK.mont_cumprod_lm.launches
+        FK.mont_cumprod_lm(rows)
+        per_call = FK.mont_cumprod_lm.launches - before  # K9's launches a call
         ms = {"mont_inv": kernel_ms("mont_inv", lambda: FK.mont_inv_lm(tot), 20),
               "mont_cumprod": per_call * kernel_ms("mont_cumprod",
                                                    lambda: FK.mont_cumprod_lm(rows), 20,
@@ -1275,7 +1325,8 @@ def phase_grand_products(pk, gen, dev):
         shapes = {"mont_inv": (C, 16), "mont_cumprod": (C, n, 16), "perm_terms": (B, P, n, 16),
                   "lookup_terms": (B, nlk, n, 16)}
         for name in ms:
-            log(f"{name:18s} at {shapes[name]}: equal; {ms[name]:.6f} ms a call (plain "
+            calls = f" of {per_call} launches" if name == "mont_cumprod" else ""
+            log(f"{name:18s} at {shapes[name]}: equal; {ms[name]:.6f} ms a call{calls} (plain "
                 f"{plain[name]:.3f} ms, bound {bounds[name][0]:.6f} ms by {bounds[name][1]})"
                 + (f"; one chain of {INV_STAGES} product stages, "
                    f"{ms[name] / INV_STAGES * 1e3:.3f} us a stage" if name == "mont_inv" else ""))
@@ -1284,9 +1335,16 @@ def phase_grand_products(pk, gen, dev):
     edge_n = "/".join(map(str, SCAN_EDGE_N))
     log(f"K8-K10 equal to their plain versions on every lane: K8 on fp and fq with 0, 1 and "
         f"p - 1, K9 at 3 x {edge_n} both ways with a zero, at powers' layout and at 1 x "
-        f"{32 * n} in fq, and all at a proof's and a batch of {BATCH}'s shapes ({nc} chunks of "
-        f"{P} permutation columns and {nlk} lookups a proof)")
-    return {name: dict(err=err, **by["row"], batch=by["batch"]) for name, by in res.items()}
+        f"{32 * n} in fq, its powers at 4 x {'/'.join(map(str, POWERS_EDGE_N))} on both "
+        f"fields (the points 0, 1, p - 1), limbs and packed, and all at a proof's and a batch "
+        f"of {BATCH}'s shapes ({nc} chunks of {P} permutation columns and {nlk} lookups a proof)")
+    out = {name: dict(err=err, **by["row"], batch=by["batch"]) for name, by in res.items()}
+    first = next(iter(pw_res.values()))
+    out["powers"] = dict(err=err, **first, batch=pw_res[f"query evals Q={6 * BATCH}, n={n - 1}"],
+                         shapes={k: dict(ms=v["ms"], plain_ms=v["plain_ms"],
+                                         bound_ms=v["bound"][0], bound_by=v["bound"][1],
+                                         launches=v["launches"]) for k, v in pw_res.items()})
+    return out
 
 
 NTT_SHAPES = (  # K11 at the main path's calls: (what, batch shape, k, inverse, coset, field)
@@ -1422,6 +1480,16 @@ RL_K = 12                 # the resource logics' domain 2^RL_K (core/proving.py:
 RL_QUERY_SHAPE = (81, 6)  # the trivial resource logic's (C, Q) at k = 12: phase 7 checks its key
 POLY_SHAPES = (  # K12-K14 off the main path's shapes: (kernel, what, n, and its other sizes)
     ("eval_polys", "tile edge, 10 points", 1025, dict(B=1, C=3, Q=10)),
+    # K12 at 1, 7, 8 and 9 points (across its old pass of 8), off and on its
+    # tile of 256 positions, one column, one coefficient; every coefficient
+    # p - 1 (the largest unreduced sums), off a tile's edge and at 2^13
+    ("eval_polys", "1 point", 300, dict(B=1, C=2, Q=1)),
+    ("eval_polys", "7 points", 257, dict(B=2, C=3, Q=7)),
+    ("eval_polys", "8 points", 256, dict(B=1, C=2, Q=8)),
+    ("eval_polys", "9 points, one column", 513, dict(B=1, C=1, Q=9)),
+    ("eval_polys", "one coefficient", 1, dict(B=1, C=1, Q=3)),
+    ("eval_polys", "every coefficient p - 1", 1000, dict(B=2, C=3, Q=6, top=True)),
+    ("eval_polys", "9 points at 2^13, p - 1", N, dict(B=1, C=1, Q=9, top=True)),
     ("eval_polys", "points shared by 2 stacks", 64, dict(B=2, C=3, Q=2, shared=True)),
     ("linear_combo", "weights shared by 2 stacks", 65, dict(B=2, C=3, shared=True)),
     ("linear_combo", "one column of one", 1, dict(B=1, C=1)),
@@ -1450,12 +1518,16 @@ def poly_bound(kernel: str, B: int, n: int, C: int = 0, Q: int = 0, G: int = 0,
                shared: bool = False):
     """K12-K14's bound: the inputs read once and the output written once
     (64 B an element), against the products the function needs: K12 B Q C n
-    and each point's n - 1 powers; K13 B C n; K14 two a position (a_j p^j
-    and the scale) and each distinct point's and inverse's n powers."""
+    terms of its dot products, each a wide product left unreduced, one
+    reduction a sum of EVAL_RUN terms, and each point's n - 1 powers; K13
+    B C n; K14 two a position (a_j p^j and the scale) and each distinct
+    point's and inverse's n powers."""
     fe = 64
     if kernel == "eval_polys":
+        sums = B * Q * C * -(-n // EVAL_RUN)
         return bound_ms(fe * (B * C * n + B * Q + B * Q * C),
-                        MM_IMADS * (B * Q * C * n + B * Q * (n - 1)))
+                        WIDE_IMADS * B * Q * C * n + REDC_IMADS * sums
+                        + MM_IMADS * B * Q * (n - 1))
     if kernel == "linear_combo":
         return bound_ms(fe * (B * C * n + (C if shared else B * C) + B * n),
                         MM_IMADS * B * C * n)
@@ -1494,9 +1566,10 @@ def phase_poly(pk, gen, dev):
                 rows[r] = c
         return x
 
-    def call(kernel, n, B=1, C=1, Q=1, G=1, shared=False):
+    def call(kernel, n, B=1, C=1, Q=1, G=1, shared=False, top=False):
         if kernel == "eval_polys":
-            a, x = elems(B, C, n), elems(Q) if shared else elems(B, Q)
+            a = consts[2].expand(B, C, n, 16).contiguous() if top else elems(B, C, n)
+            x = elems(Q) if shared else elems(B, Q)
             return lambda: FK.eval_polys_lm(a, x)
         if kernel == "linear_combo":
             a, w = elems(B, C, n), elems(C) if shared else elems(B, C)
@@ -1858,13 +1931,18 @@ KERNELS = [
     ("poseidon_sponge", "hash_n_batch", "taiga_tpu_torch/csrc/poseidon.cu",
      "none: the XLA program taiga_tpu/ops/poseidon_kernel.py:90", ("poseidon", "parallel")),
     # the grand products (every proof); K8 and K9 also in the fixed-base
-    # table's batch_inv, K9 in poly.powers
+    # table's batch_inv
     ("mont_inv", "mont_inv_lm", "taiga_tpu_torch/csrc/grand_product.cu",
      "none: the XLA program taiga_tpu/ops/limbs.py:281 (in taiga_tpu/plonk/prover.py:303, 428)",
      ("native", "device", "batch", "tx", "vamp_ir")),
     ("mont_cumprod", "mont_cumprod_lm", "taiga_tpu_torch/csrc/grand_product.cu",
      "none: the XLA program taiga_tpu/ops/poly.py:24 (in taiga_tpu/plonk/prover.py:303, 428)",
-     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list")),
+     ("native", "device", "batch", "tx", "vamp_ir")),
+    # K9's powers entry (poly.powers): the tables of K12's and K14's calls
+    # and of the IPA's b vector (the list-based open's)
+    ("powers", "powers_lm", "taiga_tpu_torch/csrc/grand_product.cu",
+     "none: the XLA program taiga_tpu/ops/poly.py:38 (powers, in :67 and :77)",
+     ("native", "device", "batch", "tx", "vamp_ir", "ipa_list", "parallel")),
     # K10, one source with two entries
     ("perm_terms", "perm_terms_lm", "taiga_tpu_torch/csrc/grand_product.cu",
      "none: the XLA program taiga_tpu/plonk/prover.py:318-339 (_make_zfn's numerators and "

@@ -2,11 +2,15 @@
 // taiga_tpu_torch (K1 mont_mul, K2/K3 ec_add_proj[_sel], K4 tape_eval, K5
 // ec_fold_shared, K6/K7 ec_add[_select]; csrc/ec_group.cuh builds the
 // thread-group point add on it), and the element-major row loads and
-// stores of K8-K14 (grand_product.cu, ntt.cu, poly.cu).
+// stores of K8-K17 (grand_product.cu, ntt.cu, poly.cu, lookup_sort.cu,
+// convert.cu).
 //
 // The Montgomery product comes in two forms with the same limbs: fe_mul,
-// generic CIOS on carry chains, and fe_mul_pasta, the same steps with the
-// reduction row written for the Pasta moduli's words in 64-bit sums.
+// generic CIOS on carry chains (K1-K8, K10, K13, K14 and the rest), and
+// fe_mul_pasta, the same steps with the reduction row written for the
+// Pasta moduli's words in 64-bit sums (K9, its powers entry, and K11). K12
+// sums unreduced 512-bit products (mul_acc_wide) and reduces each sum
+// once with the same rows (redc_pasta_sum).
 //
 // Replaces the in-kernel helpers of taiga_tpu/ops/ff_kernels.py
 // (_mm_cios, _madd, _msub, _mul15, _ec_add_proj_core). Memory layout is the
@@ -271,16 +275,50 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldConsts
   return reduce_once(r, t[kWords], F);
 }
 
-// a b 2^-256 mod p for the two Pasta primes (both fields of kFields), p =
-// 2^254 + c with c < 2^126: fe_mul's CIOS step for step, so t holds the
-// same value after every row and the result has the same limbs, in 64-bit
-// sums (one 32 x 32 -> 64 multiply-add a word, where a PTX carry chain
-// needs an IMAD and an IADD3 for each half), with the row t += m p written
-// for p's words: p0 = 1 (m itself), p4 = p5 = p6 = 0, p7 = 2^30 (m << 30
-// and m >> 2 at words 7 and 8), and n0 = -p^-1 = 2^32 - 1, so m = -t0. A
-// row is 11 wide products where fe_mul's is 17
-// (tests/test_torch_ntt_kernel.py checks both moduli's words). K11
-// (csrc/ntt.cu) computes its products with it.
+// One reduction row of the Montgomery product for the two Pasta primes
+// (both fields of kFields), p = 2^254 + c with c < 2^126: t += m p with
+// m = -t0 (n0 = -p^-1 = 2^32 - 1), written for p's words: p0 = 1 (m
+// itself), p4 = p5 = p6 = 0, p7 = 2^30 (m << 30 and m >> 2 at words 7 and
+// 8), in 64-bit sums (one 32 x 32 -> 64 multiply-add a word); then t moves
+// down a word (t0 is 0). 3 wide products where CIOS's row has 9.
+__device__ __forceinline__ void pasta_reduce_row(uint32_t (&t)[kWords + 2], uint32_t p1,
+                                                 uint32_t p2, uint32_t p3) {
+  const uint32_t m = 0u - t[0];
+  uint64_t c = ((uint64_t)t[0] + m) >> 32;
+  uint64_t v = (uint64_t)p1 * m + t[1] + c;
+  t[1] = (uint32_t)v;
+  c = v >> 32;
+  v = (uint64_t)p2 * m + t[2] + c;
+  t[2] = (uint32_t)v;
+  c = v >> 32;
+  v = (uint64_t)p3 * m + t[3] + c;
+  t[3] = (uint32_t)v;
+  c = v >> 32;
+#pragma unroll
+  for (int j = 4; j < 7; j++) {
+    v = (uint64_t)t[j] + c;
+    t[j] = (uint32_t)v;
+    c = v >> 32;
+  }
+  v = (uint64_t)t[7] + (m << 30) + c;
+  t[7] = (uint32_t)v;
+  c = v >> 32;
+  v = (uint64_t)t[8] + (m >> 2) + c;
+  t[8] = (uint32_t)v;
+  t[9] += (uint32_t)(v >> 32);
+#pragma unroll
+  for (int j = 0; j < kWords + 1; j++) t[j] = t[j + 1];
+  t[kWords + 1] = 0;
+}
+
+// a b 2^-256 mod p for the two Pasta primes: fe_mul's CIOS step for step,
+// so t holds the same value after every row and the result has the same
+// limbs, in 64-bit sums (one 32 x 32 -> 64 multiply-add a word, where a PTX
+// carry chain needs an IMAD and an IADD3 for each half), with the row
+// t += m p of pasta_reduce_row. A row is 11 wide products where fe_mul's
+// is 17 (tests/test_torch_ntt_kernel.py checks both moduli's words). K9
+// (csrc/grand_product.cu) and K11 (csrc/ntt.cu) compute their products
+// with it.
 __device__ __forceinline__ Fe fe_mul_pasta(const Fe& a, const Fe& b, const FieldConsts& F) {
   uint32_t t[kWords + 2];
 #pragma unroll
@@ -296,40 +334,101 @@ __device__ __forceinline__ Fe fe_mul_pasta(const Fe& a, const Fe& b, const Field
       t[j] = (uint32_t)v;
       c = v >> 32;
     }
-    uint64_t v = (uint64_t)t[kWords] + c;
+    const uint64_t v = (uint64_t)t[kWords] + c;
     t[kWords] = (uint32_t)v;
     t[kWords + 1] += (uint32_t)(v >> 32);
-    const uint32_t m = 0u - t[0];
-    c = ((uint64_t)t[0] + m) >> 32;
-    v = (uint64_t)p1 * m + t[1] + c;
-    t[1] = (uint32_t)v;
-    c = v >> 32;
-    v = (uint64_t)p2 * m + t[2] + c;
-    t[2] = (uint32_t)v;
-    c = v >> 32;
-    v = (uint64_t)p3 * m + t[3] + c;
-    t[3] = (uint32_t)v;
-    c = v >> 32;
-#pragma unroll
-    for (int j = 4; j < 7; j++) {
-      v = (uint64_t)t[j] + c;
-      t[j] = (uint32_t)v;
-      c = v >> 32;
-    }
-    v = (uint64_t)t[7] + (m << 30) + c;
-    t[7] = (uint32_t)v;
-    c = v >> 32;
-    v = (uint64_t)t[8] + (m >> 2) + c;
-    t[8] = (uint32_t)v;
-    t[9] += (uint32_t)(v >> 32);
-#pragma unroll
-    for (int j = 0; j < kWords + 1; j++) t[j] = t[j + 1];
-    t[kWords + 1] = 0;
+    pasta_reduce_row(t, p1, p2, p3);
   }
   Fe r;
 #pragma unroll
   for (int j = 0; j < kWords; j++) r.w[j] = t[j];
   return reduce_once(r, t[kWords], F);
+}
+
+// --- lazily reduced dot products (K12) -------------------------------------
+//
+// A sum of k products of canonical elements, S < k p^2, is kept unreduced
+// in 16 words (k <= 15: p < 2^254 (1 + 2^-127), so 15 p^2 < 15 2^508
+// (1 + 2^-126) < 2^512) and reduced once, redc_pasta_sum.
+
+// acc += a b, the whole 512-bit product (schoolbook rows in 64-bit sums
+// into t, then one 16-word carry chain into acc; no carry out of acc while
+// it holds at most 15 products of canonical elements).
+__device__ __forceinline__ void mul_acc_wide(uint32_t (&acc)[2 * kWords], const Fe& a,
+                                             const Fe& b) {
+  uint32_t t[2 * kWords];
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) {
+    const uint64_t v = (uint64_t)a.w[j] * b.w[0] + c;
+    t[j] = (uint32_t)v;
+    c = v >> 32;
+  }
+  t[kWords] = (uint32_t)c;
+#pragma unroll
+  for (int i = 1; i < kWords; i++) {
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < kWords; j++) {
+      const uint64_t v = (uint64_t)a.w[j] * b.w[i] + t[i + j] + c;
+      t[i + j] = (uint32_t)v;
+      c = v >> 32;
+    }
+    t[i + kWords] = (uint32_t)c;
+  }
+  asm("add.cc.u32 %0, %0, %16;\n\t"
+      "addc.cc.u32 %1, %1, %17;\n\t"
+      "addc.cc.u32 %2, %2, %18;\n\t"
+      "addc.cc.u32 %3, %3, %19;\n\t"
+      "addc.cc.u32 %4, %4, %20;\n\t"
+      "addc.cc.u32 %5, %5, %21;\n\t"
+      "addc.cc.u32 %6, %6, %22;\n\t"
+      "addc.cc.u32 %7, %7, %23;\n\t"
+      "addc.cc.u32 %8, %8, %24;\n\t"
+      "addc.cc.u32 %9, %9, %25;\n\t"
+      "addc.cc.u32 %10, %10, %26;\n\t"
+      "addc.cc.u32 %11, %11, %27;\n\t"
+      "addc.cc.u32 %12, %12, %28;\n\t"
+      "addc.cc.u32 %13, %13, %29;\n\t"
+      "addc.cc.u32 %14, %14, %30;\n\t"
+      "addc.u32 %15, %15, %31;"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3]), "+r"(acc[4]), "+r"(acc[5]),
+        "+r"(acc[6]), "+r"(acc[7]), "+r"(acc[8]), "+r"(acc[9]), "+r"(acc[10]), "+r"(acc[11]),
+        "+r"(acc[12]), "+r"(acc[13]), "+r"(acc[14]), "+r"(acc[15])
+      : "r"(t[0]), "r"(t[1]), "r"(t[2]), "r"(t[3]), "r"(t[4]), "r"(t[5]), "r"(t[6]),
+        "r"(t[7]), "r"(t[8]), "r"(t[9]), "r"(t[10]), "r"(t[11]), "r"(t[12]), "r"(t[13]),
+        "r"(t[14]), "r"(t[15]));
+}
+
+// S 2^-256 mod p, canonical, for S = acc a sum of at most 8 products of
+// canonical elements, on the Pasta primes. With S = L + 2^256 H (L its low 8
+// words), S 2^-256 = u + H mod p, where u = (L + M p) / 2^256 is the
+// Montgomery reduction of L alone (pasta_reduce_row's 8 rows; u <= p) and
+// H <= 8 (p - 1)^2 / 2^256 < 2^255 + 4c (p = 2^254 + c, c < 2^127). So
+// u + H <= p + 2^255 + 4c = 3 2^254 + 5c < 2^256: their 8-word sum has no
+// carry out; and it is at most 3p + 2c < 4p, so three conditional
+// subtracts of p leave the canonical value.
+// One reduction for 8 products, where a product reduced on its own takes 8
+// rows and a modular add.
+__device__ __forceinline__ Fe redc_pasta_sum(const uint32_t (&acc)[2 * kWords],
+                                             const FieldConsts& F) {
+  uint32_t t[kWords + 2];
+#pragma unroll
+  for (int j = 0; j < kWords; j++) t[j] = acc[j];
+  t[kWords] = t[kWords + 1] = 0;
+  const uint32_t p1 = F.p.w[1], p2 = F.p.w[2], p3 = F.p.w[3];
+#pragma unroll
+  for (int i = 0; i < kWords; i++) pasta_reduce_row(t, p1, p2, p3);
+  Fe u, h, r;
+#pragma unroll
+  for (int j = 0; j < kWords; j++) {
+    u.w[j] = t[j];
+    h.w[j] = acc[kWords + j];
+  }
+  add8(r, u, h);
+#pragma unroll
+  for (int k = 0; k < 3; k++) r = reduce_once(r, 0, F);
+  return r;
 }
 
 // 15*t as 16t - t (four doublings and a subtract): b3 = 3b = 15 for both

@@ -19,18 +19,37 @@
 // (MSB first from the top bit), bound by one thread's latency of 329
 // dependent products, not by bytes or operations (C is 1 to a few dozen).
 //
-// K9 mont_cumprod (taiga_cumprod: k_cumprod_totals, k_cumprod_apply): inclusive
-// prefix products along axis 0 of an (n, R, 16) view with any element and
-// row strides (the grand products pass a moved axis, ops/poly.py::powers
-// an expanded one), forward or reverse (suffix products). A block takes a
-// tile of kTile elements of one row, a thread a run of kPer neighbours.
-// Pass 1 (only when a row spans several tiles) writes each tile's product;
-// pass 2 multiplies a block's earlier tiles' products into its carry (a
-// block reduction), scans each thread's run serially in registers, scans
-// the runs' totals across the block (warp shuffles, then the four warps'
-// totals through shared memory) and writes carry x prefix x element. About
-// 30 dependent products a thread, 2 (n - 1) products in all: the card is
-// bound by bytes at these widths, and the kernel by its product latency.
+// K9 mont_cumprod (taiga_cumprod: k_cumprod_cluster; k_cumprod_totals and
+// k_cumprod_apply for a longer row): inclusive prefix products along axis 0
+// of an (n, R, 16) view with any element and row strides (the grand
+// products pass a moved axis), forward or reverse (suffix products). A row
+// of n <= 16,384 is one launch: a cluster of up to 16 blocks (a non-portable
+// size), each a tile of 128 threads x `per` neighbours. A thread scans its
+// run serially in registers, a warp the runs' totals (shuffles), the block
+// its four warps' totals; the block's product goes to shared memory, and
+// after one cluster barrier warp 0 multiplies the earlier blocks' products,
+// read through distributed shared memory, in a butterfly (no serial loop
+// over tiles). A thread's chain is per + 13 products, all on fe_mul_pasta,
+// against the two launches and about 33 generic products of the
+// tile-totals design before. The host sizes the cluster
+// (ff_kernels.cumprod_launch): 4 a thread while the call's blocks number
+// two an SM or fewer, where the chain's latency bounds it (a proof's rows
+// of 8,192: 16 blocks, a chain of 17); 8 beyond, where the products
+// themselves do (a batch's 32 and 40 rows: 8 blocks a row, 22 products a
+// thread of 8 in place of 14 of 4, 18% faster at 32 rows). A longer row
+// (the cold table build's batch_inv, 262,144) keeps the two passes over
+// tiles of 1,024: tile products, then the scan with the earlier tiles'
+// product as its carry. The function needs n - 1 products a row; the card
+// is bound by bytes at these widths (each element read once, written once).
+//
+// K9 powers (taiga_powers: k_powers): x^0 .. x^(n-1) of each of R points
+// with no scan along the row: every block builds x^j for j <= T (T = 2^t,
+// the least power of two with T^2 >= n) and y^k = x^(T k) for k < n / T in
+// shared memory by log-depth doubling (each level one product a thread:
+// small[m + j] = small[m] small[j]), then writes x^i = big[i >> t] small[i &
+// (T - 1)], one product an element, as limbs (poly.powers) or packed words
+// (K12's table). log2(n) + 1 dependent products in all; Q n elements
+// written, Q read, Q (n - 1) products the function needs.
 //
 // K10 (taiga_perm_terms, taiga_lookup_terms): the numerators and
 // denominators of the grand products, one thread an output element, for
@@ -42,7 +61,11 @@
 // and (A' + beta)(S' + gamma) (2 products). Bound by bytes (each column
 // element read once, two elements written).
 
+#include <cooperative_groups.h>
+
 #include "field.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -56,8 +79,11 @@ using taiga::store_limbs;
 
 constexpr int kThreads = 128;           // threads a block of every kernel here
 constexpr int kWarps = kThreads / 32;
-constexpr int kPer = 8;                 // K9: elements a thread scans serially
-constexpr int kTile = kThreads * kPer;  // K9: elements a block
+constexpr int kPer = 8;                 // K9, a longer row: elements a thread scans
+constexpr int kTile = kThreads * kPer;  // K9, a longer row: elements a block
+constexpr int kMaxPer = 8;              // K9 in one launch: elements a thread, at most
+constexpr int kMaxCluster = 16;         // K9 in one launch: blocks a row, at most
+constexpr int kMaxPowLog = 11;          // K9 powers: T = 2^t <= 2,048, so n <= 2^22
 
 // 1 in Montgomery form, 2^256 mod p: 2^256 - p (8 words from 0 - p), less
 // p until below it (p > 2^254, so at most three times).
@@ -69,17 +95,22 @@ __device__ __forceinline__ Fe fe_one(const FieldConsts& F) {
   return r;
 }
 
+// K9's product: the Montgomery product for the Pasta moduli.
+__device__ __forceinline__ Fe mulp(const Fe& a, const Fe& b, const FieldConsts& F) {
+  return taiga::fe_mul_pasta(a, b, F);
+}
+
 // The product of every thread's x over the block, on every thread (a
 // butterfly in each warp, then the warps' products through shared memory).
 __device__ Fe block_product(Fe x, Fe* warp_sum, const FieldConsts& F) {
 #pragma unroll 1
-  for (int d = 1; d < 32; d <<= 1) x = taiga::fe_mul(x, shfl_xor_fe(x, d), F);
+  for (int d = 1; d < 32; d <<= 1) x = mulp(x, shfl_xor_fe(x, d), F);
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) warp_sum[warp] = x;
   __syncthreads();
   Fe r = warp_sum[0];
 #pragma unroll 1
-  for (int w = 1; w < kWarps; w++) r = taiga::fe_mul(r, warp_sum[w], F);
+  for (int w = 1; w < kWarps; w++) r = mulp(r, warp_sum[w], F);
   __syncthreads();  // warp_sum may be reused
   return r;
 }
@@ -134,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_totals(ScanView v, uint32_
 #pragma unroll 1
   for (int k = 0; k < kPer; k++) {
     const int64_t i = i0 + k;
-    if (i < v.n) acc = taiga::fe_mul(acc, load_limbs(v.a + v.at(i) * v.a_sn + row * v.a_sr), F);
+    if (i < v.n) acc = mulp(acc, load_limbs(v.a + v.at(i) * v.a_sn + row * v.a_sr), F);
   }
   const Fe t = block_product(acc, warp_sum, F);
   if (threadIdx.x == 0) {
@@ -162,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_apply(ScanView v, const ui
       Fe x;
 #pragma unroll
       for (int j = 0; j < taiga::kWords; j++) x.w[j] = src[t * taiga::kWords + j];
-      acc = taiga::fe_mul(acc, x, F);
+      acc = mulp(acc, x, F);
     }
     carry = block_product(acc, warp_sum, F);
   }
@@ -176,7 +207,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_apply(ScanView v, const ui
     x[k] = i < v.n ? load_limbs(v.a + v.at(i) * v.a_sn + row * v.a_sr) : one;
   }
 #pragma unroll
-  for (int k = 1; k < kPer; k++) x[k] = taiga::fe_mul(x[k - 1], x[k], F);
+  for (int k = 1; k < kPer; k++) x[k] = mulp(x[k - 1], x[k], F);
   const Fe run = x[kPer - 1];  // lanes past the row's end hold 1
 
   // the runs' totals scanned across the warp (inclusive), then exclusive
@@ -185,7 +216,7 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_apply(ScanView v, const ui
 #pragma unroll 1
   for (int d = 1; d < 32; d <<= 1) {
     const Fe up = shfl_up_fe(incl, d);
-    if (lane >= d) incl = taiga::fe_mul(up, incl, F);
+    if (lane >= d) incl = mulp(up, incl, F);
   }
   Fe excl = shfl_up_fe(incl, 1);
   if (lane == 0) excl = one;
@@ -193,13 +224,137 @@ __global__ void __launch_bounds__(kThreads) k_cumprod_apply(ScanView v, const ui
   __syncthreads();
   Fe prefix = carry;
 #pragma unroll 1
-  for (int w = 0; w < warp; w++) prefix = taiga::fe_mul(prefix, warp_sum[w], F);
-  prefix = taiga::fe_mul(prefix, excl, F);
+  for (int w = 0; w < warp; w++) prefix = mulp(prefix, warp_sum[w], F);
+  prefix = mulp(prefix, excl, F);
 
 #pragma unroll
   for (int k = 0; k < kPer; k++) {
     const int64_t i = i0 + k;
-    if (i < v.n) store_limbs(v.out + v.at(i) * v.o_sn + row * v.o_sr, taiga::fe_mul(prefix, x[k], F));
+    if (i < v.n) store_limbs(v.out + v.at(i) * v.o_sn + row * v.o_sr, mulp(prefix, x[k], F));
+  }
+}
+
+// One launch for a row of n <= kMaxCluster kThreads kMaxPer: grid (c, R) in
+// clusters of (c, 1, 1), block `rank` of a row scanning [rank tile, (rank +
+// 1) tile), tile = kThreads per.
+__global__ void __launch_bounds__(kThreads) k_cumprod_cluster(ScanView v, int per, int field) {
+  __shared__ Fe warp_tot[kWarps];  // each warp's product
+  __shared__ Fe warp_pre[kWarps];  // the product of the block's earlier warps
+  __shared__ Fe block_tot;         // the block's product, read by the cluster's later blocks
+  __shared__ Fe carry;             // the product of the cluster's earlier blocks
+  cg::cluster_group cluster = cg::this_cluster();
+  const FieldConsts F = kFields[field];
+  const Fe one = fe_one(F);
+  const int64_t row = blockIdx.y;
+  const int rank = (int)cluster.block_rank(), blocks = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // this thread's run, scanned serially in registers (1 past the row's end)
+  const int64_t i0 = ((int64_t)rank * kThreads + threadIdx.x) * per;
+  Fe x[kMaxPer];
+#pragma unroll
+  for (int k = 0; k < kMaxPer; k++) {
+    const int64_t i = i0 + k;
+    x[k] = k < per && i < v.n ? load_limbs(v.a + v.at(i) * v.a_sn + row * v.a_sr) : one;
+  }
+#pragma unroll
+  for (int k = 1; k < kMaxPer; k++)
+    if (k < per) x[k] = mulp(x[k - 1], x[k], F);
+  Fe run = x[0];
+#pragma unroll
+  for (int k = 1; k < kMaxPer; k++)
+    if (k < per) run = x[k];
+
+  // the runs' totals scanned across the warp (inclusive), then exclusive
+  Fe incl = run;
+#pragma unroll 1
+  for (int d = 1; d < 32; d <<= 1) {
+    const Fe up = shfl_up_fe(incl, d);
+    if (lane >= d) incl = mulp(up, incl, F);
+  }
+  Fe excl = shfl_up_fe(incl, 1);
+  if (lane == 0) excl = one;
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  // lane w < kWarps: the product of warps 0 .. w - 1; lane kWarps: the
+  // block's (two products deep)
+  static_assert(kWarps == 4, "the warps' prefixes below are written for four warps");
+  if (threadIdx.x <= kWarps) {
+    const int w = threadIdx.x;
+    Fe p = w == 0 ? one : warp_tot[0];
+    if (w >= 2) {
+      const Fe t01 = mulp(warp_tot[0], warp_tot[1], F);
+      p = w == 2 ? t01 : mulp(t01, w == 3 ? warp_tot[2] : mulp(warp_tot[2], warp_tot[3], F), F);
+    }
+    if (w < kWarps)
+      warp_pre[w] = p;
+    else
+      block_tot = p;
+  }
+  __syncthreads();
+  const Fe pre = mulp(warp_pre[warp], excl, F);  // the block's elements before this run
+
+  cluster.sync();  // every block's product is in its shared memory
+  if (warp == 0) {  // the earlier blocks' products, a butterfly over lanes 0 .. blocks - 1
+    Fe t = one;
+    if (lane < rank) t = *cluster.map_shared_rank(&block_tot, lane);
+#pragma unroll 1
+    for (int d = 1; d < blocks; d <<= 1) t = mulp(t, shfl_xor_fe(t, d), F);
+    if (lane == 0) carry = t;
+  }
+  cluster.sync();  // no block reads another's shared memory after this; carry is set
+  const Fe prefix = mulp(carry, pre, F);
+#pragma unroll
+  for (int k = 0; k < kMaxPer; k++) {
+    const int64_t i = i0 + k;
+    if (k < per && i < v.n)
+      store_limbs(v.out + v.at(i) * v.o_sn + row * v.o_sr, mulp(prefix, x[k], F));
+  }
+}
+
+// K9 powers: out[r, i] = x_r^i for i < n, x_r at x + r xs words; out (R, n,
+// 16) limbs or, `packed`, (R, n, 8) words. Grid (ceil(n / chunk), R), chunk
+// = kThreads per; tab, in dynamic shared memory, holds small[0 .. T] and
+// big[0 .. nbig - 1], T = 2^t, nbig = ceil(n / T).
+__global__ void __launch_bounds__(kThreads) k_powers(const uint32_t* __restrict__ x, int64_t xs,
+                                                     uint32_t* __restrict__ out, int64_t n, int t,
+                                                     int64_t chunk, int packed, int field) {
+  extern __shared__ Fe tab[];
+  const FieldConsts F = kFields[field];
+  const int T = 1 << t;
+  const int nbig = (int)((n + T - 1) >> t);
+  Fe* small = tab;          // x^0 .. x^T
+  Fe* big = tab + T + 1;    // x^0, x^T, .. x^(T (nbig - 1))
+  const int64_t row = blockIdx.y;
+  if (threadIdx.x == 0) {
+    small[0] = fe_one(F);
+    small[1] = load_limbs(x + row * xs);
+  }
+  __syncthreads();
+  // small[0 .. 2m] from small[0 .. m]: small[m + j] = small[m] small[j]
+#pragma unroll 1
+  for (int m = 1; m < T; m <<= 1) {
+    for (int j = threadIdx.x + 1; j <= m; j += kThreads) small[m + j] = mulp(small[m], small[j], F);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    big[0] = small[0];
+    if (nbig > 1) big[1] = small[T];
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int m = 1; m + 1 < nbig; m <<= 1) {
+    for (int j = threadIdx.x + 1; j <= m && m + j < nbig; j += kThreads)
+      big[m + j] = mulp(big[m], big[j], F);
+    __syncthreads();
+  }
+  const int64_t end = (blockIdx.x + 1) * chunk < n ? (blockIdx.x + 1) * chunk : n;
+  for (int64_t i = blockIdx.x * chunk + threadIdx.x; i < end; i += kThreads) {
+    const Fe r = mulp(big[i >> t], small[i & (T - 1)], F);
+    if (packed)
+      taiga::store_packed(out + (row * n + i) * taiga::kWords, r);
+    else
+      store_limbs(out + (row * n + i) * taiga::kLimbs, r);
   }
 }
 
@@ -273,18 +428,46 @@ extern "C" int taiga_mont_inv(const uint32_t* a, uint32_t* out, int64_t C, int f
   return (int)cudaGetLastError();
 }
 
-// Tiles a row of n elements: totals (R x tiles x 8 words) is scratch,
-// used only when a row has more than one tile.
+// Tiles of a row of n elements in the two-pass form: totals (R x tiles x 8
+// words) is scratch, used only when a row has more than one tile.
 extern "C" int taiga_cumprod_tiles(int64_t n) { return (int)((n + kTile - 1) / kTile); }
 
+// blocks > 0: one launch, a cluster of `blocks` blocks a row, `per`
+// elements a thread (blocks kThreads per >= n); blocks == 0: the two
+// passes over tiles of kTile (totals when a row spans several).
 extern "C" int taiga_cumprod(const uint32_t* a, int64_t a_sn, int64_t a_sr, uint32_t* out,
                              int64_t o_sn, int64_t o_sr, int64_t n, int64_t R, int reverse,
-                             uint32_t* totals, int field, cudaStream_t stream) {
+                             int blocks, int per, uint32_t* totals, int field,
+                             cudaStream_t stream) {
   if (n <= 0 || R <= 0) return 0;
   if (R > 65535) return (int)cudaErrorInvalidValue;
+  const ScanView v{a, out, n, a_sn, a_sr, o_sn, o_sr, reverse};
+  if (blocks > 0) {
+    if (blocks > kMaxCluster || per < 1 || per > kMaxPer || (int64_t)blocks * kThreads * per < n)
+      return (int)cudaErrorInvalidValue;
+    static bool wide = false;  // a cluster over 8 blocks needs the non-portable size
+    if (!wide) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          k_cumprod_cluster, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (rc != cudaSuccess) return (int)rc;
+      wide = true;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)blocks, (unsigned)R);
+    cfg.blockDim = dim3(kThreads);
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)blocks;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(&cfg, k_cumprod_cluster, v, per, field);
+    return rc != cudaSuccess ? (int)rc : (int)cudaGetLastError();
+  }
   const int64_t tiles = (n + kTile - 1) / kTile;
   if (tiles > 0x7FFFFFFF || (tiles > 1 && totals == nullptr)) return (int)cudaErrorInvalidValue;
-  const ScanView v{a, out, n, a_sn, a_sr, o_sn, o_sr, reverse};
   const dim3 grid((unsigned)tiles, (unsigned)R);
   if (tiles > 1) {
     k_cumprod_totals<<<grid, kThreads, 0, stream>>>(v, totals, field);
@@ -292,6 +475,28 @@ extern "C" int taiga_cumprod(const uint32_t* a, int64_t a_sn, int64_t a_sr, uint
     if (rc != cudaSuccess) return (int)rc;
   }
   k_cumprod_apply<<<grid, kThreads, 0, stream>>>(v, tiles > 1 ? totals : nullptr, field);
+  return (int)cudaGetLastError();
+}
+
+// out (R, n, 16), or (R, n, 8) words when `packed`: x_r^i for i < n, x_r at
+// x + r xs words; t the tables' log2 T (T^2 >= n, t <= kMaxPowLog), per the
+// elements a thread writes (a block's chunk is kThreads per).
+extern "C" int taiga_powers(const uint32_t* x, int64_t xs, uint32_t* out, int64_t n, int64_t R,
+                            int t, int per, int packed, int field, cudaStream_t stream) {
+  if (n <= 0 || R <= 0) return 0;
+  if (R > 65535 || t < 0 || t > kMaxPowLog || per < 1 || ((int64_t)1 << (2 * t)) < n)
+    return (int)cudaErrorInvalidValue;
+  const int64_t T = (int64_t)1 << t, nbig = (n + T - 1) >> t;
+  const size_t smem = (size_t)(T + 1 + nbig) * sizeof(Fe);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc =
+        cudaFuncSetAttribute(k_powers, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const int64_t chunk = (int64_t)kThreads * per, chunks = (n + chunk - 1) / chunk;
+  if (chunks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  k_powers<<<dim3((unsigned)chunks, (unsigned)R), kThreads, smem, stream>>>(x, xs, out, n, t, chunk,
+                                                                          packed, field);
   return (int)cudaGetLastError();
 }
 

@@ -20,16 +20,26 @@
 // limbs bit for bit.
 //
 // K12 eval_polys (k_eval_polys, k_eval_reduce): v[b, q, c] = sum_i
-// coeffs[b, c, i] x[b, q]^i from the powers table x^i (B, Q, n), which the
-// wrapper takes from ops/poly.py::powers (K9). A block takes a tile of
-// kTile positions of one (b, c) row: each thread loads a coefficient once
-// and multiplies it by the point's power for up to kMaxQ points at a time,
-// summing into one register accumulator a point; the block then sums each
-// accumulator (a warp butterfly, then the warps through shared memory) and
-// writes its tile's partial sums, which a second launch adds over the
-// tiles (one launch when a row is one tile). Bound: operations, B Q C n
-// products of 264 32-bit multiply-adds against 64 B an element read once
-// (the powers are Q rows a proof, read from L2 by every row c).
+// coeffs[b, c, i] x[b, q]^i from the powers table x^i (B, Q, n) as packed
+// words, which the wrapper takes from K9's powers entry. A block is one
+// warp and takes a tile of kEvalTile = 256 positions of one (b, c) row: a
+// lane holds 8 coefficients (neighbouring lanes on neighbouring positions)
+// and, for one point at a time, sums their unreduced 512-bit products with
+// the point's powers in one 16-word accumulator (mul_acc_wide), then
+// reduces the sum once (redc_pasta_sum: the Pasta reduction rows and three
+// conditional subtracts), where the design before reduced every product
+// with the generic CIOS and added it modularly. The warp then sums each
+// point's lanes (a butterfly of modular adds) and writes its tile's
+// partial sums, which a second launch adds over the tiles (a warp an
+// output; one launch when a row is one tile). The blocks are small, so a
+// call's last wave is a small part of it: a proof's query evaluations are
+// 2,880 blocks, 1.45 waves at 15 blocks an SM (134 registers, no spill);
+// an earlier variant of 158 registers took the same time there as one
+// wave of 1,440 blocks of twice the positions. Bound: operations, B Q C n
+// wide products of 128 32-bit multiply-adds, one reduction of 136 a sum
+// of 8 of them, and each point's n - 1 powers at 264 (a CIOS product),
+// against 64 B a coefficient read once and the powers' 32 B, read from L2
+// by every row c.
 //
 // K13 linear_combo (k_linear_combo): out[b, i] = sum_c w[b, c] stack[b, c,
 // i], one thread an output element looping over the C columns, the
@@ -67,11 +77,13 @@ using taiga::shfl_xor_fe;
 using taiga::store_limbs;
 using taiga::store_packed;
 
-constexpr int kThreads = 128;           // threads a block of K12 and K14
+constexpr int kThreads = 128;           // threads a block of K14 and of K12's tile sums
 constexpr int kWarps = kThreads / 32;
-constexpr int kPer = 8;                 // positions a thread takes
-constexpr int kTile = kThreads * kPer;  // positions of a row a block takes
-constexpr int kMaxQ = 8;                // K12: points a pass over the tile accumulates
+constexpr int kPer = 8;                 // K14: positions a thread takes
+constexpr int kTile = kThreads * kPer;  // K14: positions of a row a block takes
+constexpr int kEvalThreads = 32;        // K12: one warp a block
+constexpr int kEvalPer = 8;             // K12: products a lane sums before one reduction
+constexpr int kEvalTile = kEvalThreads * kEvalPer;  // K12: positions a block, a tile
 constexpr int kComboThreads = 64;       // K13: threads a block (n / 64 blocks a proof)
 constexpr int64_t kMaxComboC = 48 * 1024 / sizeof(Fe);  // K13: columns, 48 KB of weights
 constexpr int64_t kMaxGrid = 0x7FFFFFFF;
@@ -102,74 +114,66 @@ int64_t blocks_for(int64_t lanes, int threads) { return (lanes + threads - 1) / 
 // ---------------------------------------------------------------------------
 
 struct EvalArgs {
-  const uint32_t* coeffs;  // element (b, c, i) at b cb + c cc + i ci words
-  const uint32_t* pw;      // x[b, q]^i at b pb + q pq + i pi words
+  const uint32_t* coeffs;  // element (b, c, i) at b cb + c cc + i ci words (limbs)
+  const uint32_t* pw;      // x[b, q]^i at b pb + q pq + i pi words (packed)
   uint32_t* part;          // (B, C, tiles, Q) packed partial sums, when tiles > 1
   uint32_t* out;           // (B, Q, C, 16)
   int64_t C, Q, n, tiles;
   int64_t cb, cc, ci, pb, pq, pi;
 };
 
-// Grid: B C tiles blocks, (b, c) = blockIdx.x / tiles, the tile its rest.
-__global__ void __launch_bounds__(kThreads) k_eval_polys(EvalArgs a, int field) {
-  __shared__ Fe part[kWarps][kMaxQ];
+// Grid: B C tiles one-warp blocks, (b, c) = blockIdx.x / tiles, the tile of
+// kEvalTile positions its rest.
+__global__ void __launch_bounds__(kEvalThreads) k_eval_polys(EvalArgs a, int field) {
   const FieldConsts F = kFields[field];
   const int64_t bc = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
   const int64_t b = bc / a.C, c = bc % a.C;
   const uint32_t* crow = a.coeffs + b * a.cb + c * a.cc;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const uint32_t* prow = a.pw + b * a.pb;
+  const int lane = threadIdx.x;
+  const int64_t i0 = tile * kEvalTile + lane;
+  Fe x[kEvalPer];
+#pragma unroll
+  for (int k = 0; k < kEvalPer; k++) {
+    const int64_t i = i0 + k * kEvalThreads;
+    x[k] = i < a.n ? load_limbs(crow + i * a.ci) : fe_zero();
+  }
 #pragma unroll 1
-  for (int64_t q0 = 0; q0 < a.Q; q0 += kMaxQ) {
-    const int qn = a.Q - q0 < kMaxQ ? (int)(a.Q - q0) : kMaxQ;  // the same on every thread
-    const uint32_t* prow = a.pw + b * a.pb + q0 * a.pq;
-    Fe acc[kMaxQ];
+  for (int64_t q = 0; q < a.Q; q++) {
+    uint32_t acc[2 * kWords];
 #pragma unroll
-    for (int q = 0; q < kMaxQ; q++) acc[q] = fe_zero();
-#pragma unroll 1
-    for (int k = 0; k < kPer; k++) {  // neighbouring threads on neighbouring positions
-      const int64_t i = tile * kTile + k * kThreads + threadIdx.x;
-      if (i >= a.n) break;
-      const Fe x = load_limbs(crow + i * a.ci);
+    for (int w = 0; w < 2 * kWords; w++) acc[w] = 0;
+    const uint32_t* pq = prow + q * a.pq;
 #pragma unroll
-      for (int q = 0; q < kMaxQ; q++)
-        if (q < qn)
-          acc[q] = taiga::fe_add(
-              acc[q], taiga::fe_mul(x, load_limbs(prow + q * a.pq + i * a.pi), F), F);
+    for (int k = 0; k < kEvalPer; k++) {
+      const int64_t i = i0 + k * kEvalThreads;
+      if (i < a.n) taiga::mul_acc_wide(acc, x[k], load_packed(pq + i * a.pi));
     }
-#pragma unroll
-    for (int q = 0; q < kMaxQ; q++) {
-      if (q < qn) {
-        const Fe s = warp_sum(acc[q], F);
-        if (lane == 0) part[warp][q] = s;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < qn) {
-      const int q = threadIdx.x;
-      Fe s = part[0][q];
-#pragma unroll
-      for (int w = 1; w < kWarps; w++) s = taiga::fe_add(s, part[w][q], F);
+    const Fe s = warp_sum(taiga::redc_pasta_sum(acc, F), F);
+    if (lane == 0) {
       if (a.tiles == 1)
-        store_limbs(a.out + ((b * a.Q + q0 + q) * a.C + c) * kLimbs, s);
+        store_limbs(a.out + ((b * a.Q + q) * a.C + c) * kLimbs, s);
       else
-        store_packed(a.part + ((bc * a.tiles + tile) * a.Q + q0 + q) * kWords, s);
+        store_packed(a.part + ((bc * a.tiles + tile) * a.Q + q) * kWords, s);
     }
-    __syncthreads();  // part is reused by the next points
   }
 }
 
-// out[b, q, c] = the sum over the tiles of part[b, c, tile, q], one thread
-// an output element.
+// out[b, q, c] = the sum over the tiles of part[b, c, tile, q], one warp
+// an output element: lane l adds tiles l, l + 32, .. (their loads
+// independent), then the warp's butterfly.
 __global__ void __launch_bounds__(kThreads) k_eval_reduce(EvalArgs a, int64_t B, int field) {
-  const int64_t o = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= B * a.Q * a.C) return;
+  const int64_t o = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (o >= B * a.Q * a.C) return;  // whole warps: B Q C outputs fill them in turn
   const FieldConsts F = kFields[field];
+  const int lane = threadIdx.x & 31;
   const int64_t c = o % a.C, q = (o / a.C) % a.Q, b = o / (a.C * a.Q);
   const uint32_t* src = a.part + ((b * a.C + c) * a.tiles * a.Q + q) * kWords;
-  Fe s = load_packed(src);
+  Fe s = fe_zero();
 #pragma unroll 1
-  for (int64_t t = 1; t < a.tiles; t++) s = taiga::fe_add(s, load_packed(src + t * a.Q * kWords), F);
-  store_limbs(a.out + o * kLimbs, s);
+  for (int64_t t = lane; t < a.tiles; t += 32) s = taiga::fe_add(s, load_packed(src + t * a.Q * kWords), F);
+  s = warp_sum(s, F);
+  if (lane == 0) store_limbs(a.out + o * kLimbs, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -288,27 +292,29 @@ __global__ void __launch_bounds__(kThreads) k_div_apply(DivView v, const uint32_
 
 }  // namespace
 
-// Tiles of a row of n positions (K12 and K14): their scratch holds one
-// entry a tile, used only when a row has more than one tile.
+// Tiles of a row of n positions (K14): their scratch holds one entry a
+// tile, used only when a row has more than one tile.
 extern "C" int taiga_poly_tiles(int64_t n) { return (int)((n + kTile - 1) / kTile); }
 
 // out (B, Q, C, 16) = sum_i coeffs[b, c, i] pw[b, q, i]; coeffs element (b,
-// c, i) at coeffs + b cb + c cc + i ci words, pw's (b, q, i) at pw + b pb +
-// q pq + i pi (strides multiples of 4, pointers 16-byte aligned); part
-// (B, C, tiles, Q, 8) words of scratch when tiles > 1.
+// c, i) at coeffs + b cb + c cc + i ci words (limbs), pw's (b, q, i) at pw +
+// b pb + q pq + i pi words (packed; strides multiples of 4, pointers 16-byte
+// aligned); part (B, C, tiles, Q, 8) words of scratch when a row spans
+// several tiles of kEvalTile positions.
 extern "C" int taiga_eval_polys(const uint32_t* coeffs, int64_t cb, int64_t cc, int64_t ci,
                                 const uint32_t* pw, int64_t pb, int64_t pq, int64_t pi,
                                 uint32_t* part, uint32_t* out, int64_t B, int64_t C, int64_t Q,
                                 int64_t n, int field, cudaStream_t stream) {
   if (B <= 0 || C <= 0 || Q <= 0) return 0;
   if (n <= 0 || field < 0 || field > 1) return (int)cudaErrorInvalidValue;
-  const int64_t tiles = (n + kTile - 1) / kTile;
+  const int64_t tiles = (n + kEvalTile - 1) / kEvalTile;
   if (B * C * tiles > kMaxGrid || (tiles > 1 && part == nullptr)) return (int)cudaErrorInvalidValue;
   const EvalArgs a{coeffs, pw, part, out, C, Q, n, tiles, cb, cc, ci, pb, pq, pi};
-  k_eval_polys<<<(unsigned)(B * C * tiles), kThreads, 0, stream>>>(a, field);
+  k_eval_polys<<<(unsigned)(B * C * tiles), kEvalThreads, 0, stream>>>(a, field);
   const cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || tiles == 1) return (int)rc;
-  k_eval_reduce<<<(unsigned)blocks_for(B * Q * C, kThreads), kThreads, 0, stream>>>(a, B, field);
+  k_eval_reduce<<<(unsigned)blocks_for(B * Q * C * 32, kThreads), kThreads, 0, stream>>>(a, B,
+                                                                                        field);
   return (int)cudaGetLastError();
 }
 

@@ -107,8 +107,9 @@ _ARGTYPES = {
     "grand_product": {
         "taiga_mont_inv": [_VP, _VP, _I64, ctypes.c_int, _VP],
         "taiga_cumprod_tiles": [_I64],
-        "taiga_cumprod": [_VP, _I64, _I64, _VP, _I64, _I64, _I64, _I64, ctypes.c_int, _VP,
-                          ctypes.c_int, _VP],
+        "taiga_cumprod": [_VP, _I64, _I64, _VP, _I64, _I64, _I64, _I64, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _VP, ctypes.c_int, _VP],
+        "taiga_powers": [_VP, _I64, _VP, _I64, _I64] + [ctypes.c_int] * 4 + [_VP],
         "taiga_perm_terms": [_VP] * 8 + [_I64] * 4 + [ctypes.c_int, _VP],
         "taiga_lookup_terms": [_VP] * 8 + [_I64, _I64, ctypes.c_int, _VP],
     },

@@ -20,6 +20,7 @@ warp's lanes read neighbouring words.
      ec_double_lm       Jacobian doubling (dbl-2009-l) csrc/ec_add_jac.cu
   K8 mont_inv_lm        Fermat's a^(p-2) of each row   csrc/grand_product.cu
   K9 mont_cumprod_lm    prefix or suffix products      csrc/grand_product.cu
+     powers_lm          1, x, .., x^(n-1) of each x    csrc/grand_product.cu
   K10 perm_terms_lm     the grand products' numerators csrc/grand_product.cu
       lookup_terms_lm   and denominators               csrc/grand_product.cu
   K11 ntt_lm            the NTT family, two passes     csrc/ntt.cu
@@ -542,6 +543,27 @@ def mont_cumprod_plain(a, field: str = "fp", reverse: bool = False):
     return L.from_lm(L.lm_scan(L.to_lm(a), lambda x, y: L.lm_mul(x, y, spec), dim=-1))
 
 
+def powers_plain(x, n: int, field: str = "fp"):
+    """Plain version of K9's powers entry: [1, x, ..., x^(n-1)] as (..., n,
+    16) for Montgomery points x (..., 16), one scan of each x expanded along
+    the row (mont_cumprod_plain) after a leading 1."""
+    spec = _spec(field)
+    lead = tuple(x.shape[:-1])
+    xs = x.reshape(-1, 1, NLIMBS)
+    one = L.const(spec.one_mont, x.device).expand(xs.shape[0], 1, NLIMBS)
+    if n > 1:
+        one = torch.cat([one, mont_cumprod_plain(xs.expand(xs.shape[0], n - 1, NLIMBS), field)],
+                        dim=1)
+    return one.reshape(lead + (n, NLIMBS))
+
+
+def packed_words(a):
+    """(..., 16) limbs as (..., 8) 32-bit words (int32 bit patterns): the
+    packed layout the kernels read as two 16-byte vectors."""
+    w = a[..., 0::2].to(torch.int64) | (a[..., 1::2].to(torch.int64) << 16)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
 def perm_terms_plain(cols, sigma, omega_pows, beta, gamma, delta, chunk: int):
     """Plain version of K10's permutation entry, over Fp: the numerators
     prod_j (v_j + beta delta^j omega^i + gamma) and denominators
@@ -638,11 +660,59 @@ def _aligned_rows(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
+CUMPROD_THREADS = 128  # K9's threads a block (csrc/grand_product.cu kThreads)
+CUMPROD_MAX_BLOCKS = 16  # K9 in one launch: blocks a row, a non-portable cluster (kMaxCluster)
+CUMPROD_MAX_PER = 8  # K9 in one launch: elements a thread (kMaxPer)
+CUMPROD_PER = 4  # K9 in one launch: elements a thread of a narrow call (a proof's rows)
+CUMPROD_ONE_LAUNCH_N = CUMPROD_MAX_BLOCKS * CUMPROD_THREADS * CUMPROD_MAX_PER  # 16,384
+POWERS_MAX_LOG = 11  # K9 powers: tables of at most 2^11 + 1 elements (kMaxPowLog)
+POWERS_MAX_N = 1 << (2 * POWERS_MAX_LOG)  # the longest row of powers the card takes
+
+
+def cumprod_launch(n: int, rows: int = 1, sms: int = 132) -> tuple[int, int] | None:
+    """K9's one-launch shape for `rows` rows of n elements on a card of
+    `sms` SMs: (blocks a row, the cluster's size; elements a thread), no
+    block past a row's end. CUMPROD_PER a thread while those blocks number
+    at most two an SM (the call is bound by its chain of products: 16
+    blocks a row of 8,192), else CUMPROD_MAX_PER (bound by the products
+    themselves: fewer warp-scan products an element, 8 blocks a row); more a
+    thread where the cluster is full. None above CUMPROD_ONE_LAUNCH_N: the
+    two passes over tiles of 1,024."""
+    if n > CUMPROD_ONE_LAUNCH_N:
+        return None
+    per = CUMPROD_PER
+    if rows * -(-n // (CUMPROD_THREADS * per)) > 2 * sms:
+        per = CUMPROD_MAX_PER
+    blocks = min(CUMPROD_MAX_BLOCKS, max(1, -(-n // (CUMPROD_THREADS * per))))
+    per = -(-n // (CUMPROD_THREADS * blocks))
+    return -(-n // (CUMPROD_THREADS * per)), per
+
+
+def powers_table_log(n: int) -> int:
+    """log2 T of K9's powers tables for rows of n: the least T = 2^t with
+    T^2 >= n, so that x^i = x^(T (i >> t)) x^(i mod T) with x^j for j <= T
+    and x^(T k) for k < ceil(n / T) in shared memory."""
+    return ((n - 1).bit_length() + 1) // 2
+
+
+def powers_per_thread(rows: int, n: int, sms: int) -> int:
+    """Elements a thread of K9's powers writes: about two blocks an SM over
+    the call (every block builds its own tables, so a wide call takes fewer,
+    wider blocks), 1 to 8."""
+    return min(8, max(1, -(-rows * n // (CUMPROD_THREADS * 2 * sms))))
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def mont_cumprod_lm(a, field: str = "fp", reverse: bool = False):
     """K9: inclusive products along the second-last axis of (..., n, 16)
-    Montgomery rows (suffix products when `reverse`), in one launch, or two
-    when a row is longer than a block's tile. Any strides: an expanded or
-    moved axis is read in place. Returns a contiguous tensor of a's shape."""
+    Montgomery rows (suffix products when `reverse`): one launch for rows of
+    up to CUMPROD_ONE_LAUNCH_N (a cluster of blocks a row, sized by
+    cumprod_launch), two for a longer row (tile products, then the scan).
+    Any strides: an expanded or moved axis is read in place. Returns a
+    contiguous tensor of a's shape."""
     if a.dim() < 2:
         raise ValueError(f"a: shape {tuple(a.shape)}, expected (..., n, 16)")
     check_rows("a", a, *a.shape[:-1], NLIMBS)
@@ -655,14 +725,48 @@ def mont_cumprod_lm(a, field: str = "fp", reverse: bool = False):
     R = v.shape[0]
     out = torch.empty((R, n, NLIMBS), dtype=a.dtype, device=a.device)
     so = CK.lib("grand_product")
-    tiles = so.taiga_cumprod_tiles(n)
+    launch = cumprod_launch(n, R, _sm_count(a.device))
+    blocks, per = launch or (0, 0)
+    tiles = 1 if launch else so.taiga_cumprod_tiles(n)
     totals = torch.empty((R * tiles * NLIMBS // 2,) if tiles > 1 else (0,), dtype=a.dtype,
                          device=a.device)
     CK.check(so.taiga_cumprod(_ptr(v), v.stride(1), v.stride(0), _ptr(out), NLIMBS, n * NLIMBS,
-                              n, R, int(reverse), _ptr(totals) if tiles > 1 else None,
-                              CK.FIELD_IDS[field], CK.stream_ptr(a.device)), "mont_cumprod")
+                              n, R, int(reverse), blocks, per,
+                              _ptr(totals) if tiles > 1 else None, CK.FIELD_IDS[field],
+                              CK.stream_ptr(a.device)), "mont_cumprod")
     mont_cumprod_lm.launches += 2 if tiles > 1 else 1
     return out.view(a.shape)
+
+
+def powers_lm(x, n: int, field: str = "fp", packed: bool = False):
+    """K9's powers entry: [1, x, ..., x^(n-1)] of Montgomery points x (...,
+    16) -> (..., n, 16), or with `packed` (..., n, 8) 32-bit words (K12's
+    table; packed_words of the same), in one launch with no scan along the
+    row: every block builds x^j (j <= T) and x^(T k) in shared memory by
+    doubling (powers_table_log), then writes x^i = x^(T (i >> t)) x^(i mod
+    T), one product an element. On the card n <= POWERS_MAX_N."""
+    if n < 1:
+        raise ValueError(f"powers: n = {n}, expected >= 1")
+    check_rows("x", x, *x.shape[:-1], NLIMBS)
+    if not use_kernel(x):
+        out = powers_plain(x, n, field)
+        return packed_words(out) if packed else out
+    if n > POWERS_MAX_N:
+        raise ValueError(f"powers: n = {n}, the kernel takes {POWERS_MAX_N}")
+    lead = tuple(x.shape[:-1])
+    xv = x.reshape(-1, NLIMBS)
+    if not _aligned_rows(xv):
+        xv = xv.contiguous()
+    R, words = xv.shape[0], NLIMBS // 2 if packed else NLIMBS
+    out = torch.empty((R, n, words), dtype=x.dtype, device=x.device)
+    if R == 0:
+        return out.view(lead + (n, words))
+    CK.check(CK.lib("grand_product").taiga_powers(
+        _ptr(xv), xv.stride(0), _ptr(out), n, R, powers_table_log(n),
+        powers_per_thread(R, n, _sm_count(x.device)), int(packed), CK.FIELD_IDS[field],
+        CK.stream_ptr(x.device)), "powers")
+    powers_lm.launches += 1
+    return out.view(lead + (n, words))
 
 
 def perm_terms_lm(cols, sigma, omega_pows, beta, gamma, delta, chunk: int):
@@ -794,14 +898,19 @@ def _check_poly_rows(name: str, t: torch.Tensor, ndim: int):
     check_rows(name, t, *t.shape[:-1], NLIMBS)
 
 
+EVAL_TILE = 256  # positions of a K12 block: 32 lanes x 8 (csrc/poly.cu kEvalTile)
+
+
 def eval_polys_lm(coeffs, points, field: str = "fp"):
     """K12: C polynomials at Q points, coeffs (..., C, n, 16) and points
     (..., Q, 16) Montgomery -> (..., Q, C, 16), the leading axes broadcast
     (a batch of proofs pairs each stack with its points). The powers table
-    x^i (..., Q, n, 16) comes from poly.powers (K9); then one launch, or two
-    when a row is longer than a block's tile (the tiles' partial sums, then
-    their sum). Any strides: an expanded axis is read in place."""
-    from . import poly as PL  # ops/poly.py holds the plain version and powers
+    x^i (..., Q, n) comes packed from K9's powers entry (powers_lm); then one
+    launch of one-warp blocks, each summing its lanes' unreduced products
+    over a tile of EVAL_TILE positions and reducing once a point, or two
+    when a row spans several tiles (the tiles' partial sums, then their
+    sum). Any strides: an expanded axis is read in place."""
+    from . import poly as PL  # ops/poly.py holds the plain version
 
     _check_poly_rows("coeffs", coeffs, 3)
     _check_poly_rows("points", points, 2)
@@ -816,16 +925,14 @@ def eval_polys_lm(coeffs, points, field: str = "fp"):
     if out.numel() == 0:
         return out
     cv = _lead_rows(coeffs, lead, (C, n, NLIMBS))
-    pv = _lead_rows(PL.powers(points, n, field), lead, (Q, n, NLIMBS))
+    pv = _lead_rows(powers_lm(points, n, field, packed=True), lead, (Q, n, NLIMBS // 2))
     B = cv.shape[0]
-    so = CK.lib("poly")
-    tiles = so.taiga_poly_tiles(n)
+    tiles = -(-n // EVAL_TILE)
     part = torch.empty((B * C * tiles * Q * NLIMBS // 2,) if tiles > 1 else (0,),
                        dtype=coeffs.dtype, device=coeffs.device)
-    CK.check(so.taiga_eval_polys(_ptr(cv), *cv.stride()[:3], _ptr(pv), *pv.stride()[:3],
-                                 _ptr(part) if tiles > 1 else None, _ptr(out), B, C, Q, n,
-                                 CK.FIELD_IDS[field], CK.stream_ptr(coeffs.device)),
-             "eval_polys")
+    CK.check(CK.lib("poly").taiga_eval_polys(
+        _ptr(cv), *cv.stride()[:3], _ptr(pv), *pv.stride()[:3], _ptr(part) if tiles > 1 else None,
+        _ptr(out), B, C, Q, n, CK.FIELD_IDS[field], CK.stream_ptr(coeffs.device)), "eval_polys")
     eval_polys_lm.launches += 2 if tiles > 1 else 1
     return out
 
@@ -865,7 +972,7 @@ def synthetic_div_lm(coeffs, point, point_inv, field: str = "fp"):
     16), with point and point_inv (16,) shared or (..., 16) one a
     polynomial (broadcast against the leading axes). It scales by the given
     point_inv's powers, so it equals synthetic_div_plain for any point_inv.
-    The powers tables come from poly.powers (K9); then one launch, or two
+    The powers tables come from K9's powers entry; then one launch, or two
     when a row is longer than a block's tile (the tiles' sums, then the
     scan). Any strides: a shared point's table is read through a row
     stride of 0."""
@@ -883,8 +990,8 @@ def synthetic_div_lm(coeffs, point, point_inv, field: str = "fp"):
     if out.numel() == 0:
         return out
     av = _lead_rows(coeffs, lead, (n, NLIMBS))
-    pv = _lead_rows(PL.powers(point, n + 1, field), lead, (n + 1, NLIMBS))
-    iv = _lead_rows(PL.powers(point_inv, n + 1, field), lead, (n + 1, NLIMBS))
+    pv = _lead_rows(powers_lm(point, n + 1, field), lead, (n + 1, NLIMBS))
+    iv = _lead_rows(powers_lm(point_inv, n + 1, field), lead, (n + 1, NLIMBS))
     R = av.shape[0]
     so = CK.lib("poly")
     tiles = so.taiga_poly_tiles(n)
@@ -1287,6 +1394,7 @@ ec_double_lm.launches = 0
 ec_fold_shared_lm.launches = 0
 mont_inv_lm.launches = 0
 mont_cumprod_lm.launches = 0
+powers_lm.launches = 0
 perm_terms_lm.launches = 0
 lookup_terms_lm.launches = 0
 ntt_lm.launches = 0

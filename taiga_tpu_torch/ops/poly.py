@@ -5,8 +5,9 @@ multiopen and permutation math on the device.
 Port of taiga_tpu/ops/poly.py. All values are (..., 16) int32 Montgomery
 limb tensors over Fp. Field addition and multiplication are exact, so the
 scans here (K9, ff_kernels.mont_cumprod_lm, and Hillis-Steele doubling in
-place of the reference's associative_scan) give the reference's values bit
-for bit.
+place of the reference's associative_scan) and the powers (K9's powers
+entry, ff_kernels.powers_lm: tables in place of a scan) give the
+reference's values bit for bit.
 
 The three programs of the query evaluations and the multiopen route to
 their hand kernels (ff_kernels: K12 eval_polys_lm, K13 linear_combo_lm,
@@ -39,13 +40,8 @@ def mod_cumsum(a, field: str = "fp"):
 
 def powers(x_mont, n: int, field: str = "fp"):
     """[1, x, x^2, ..., x^(n-1)] as (..., n, 16) Montgomery limbs for x of
-    shape (..., 16): one scan for every x."""
-    spec = _spec(field)
-    lead = tuple(x_mont.shape[:-1])
-    xs = x_mont.reshape(1, -1, L.NLIMBS)
-    pows = mont_cumprod(xs.expand(n - 1, xs.shape[1], L.NLIMBS), field)
-    one = L.const(spec.one_mont, x_mont.device).expand(1, xs.shape[1], L.NLIMBS)
-    return torch.cat([one, pows], dim=0).movedim(0, 1).reshape(lead + (n, L.NLIMBS))
+    shape (..., 16) (K9's powers entry, ff_kernels.powers_lm)."""
+    return FK.powers_lm(x_mont, n, field)
 
 
 def tree_sum(a, axis: int, field: str = "fp"):

@@ -3,7 +3,9 @@ K9 mont_cumprod_lm, K10 perm_terms_lm / lookup_terms_lm, csrc/grand_product.cu)
 through their plain versions on the CPU, against the JAX package: K8 against
 taiga_tpu.ops.limbs.mont_inv on both fields, K9 forward and reverse against
 taiga_tpu.ops.poly.mont_cumprod (reverse: its result on the flipped rows),
-and K10 with the finish as the prover runs them, z_values_batch and
+K9's powers entry (powers_lm) against taiga_tpu.ops.poly.powers on both
+fields, the host sizes of K9's launches and powers tables against the
+arithmetic they stand for, and K10 with the finish as the prover runs them, z_values_batch and
 lookup_z_values_batch against the JAX package's ProverPipeline.z_values and
 lookup_z_values on seeded columns and blinding rows at k = 5, for a key of
 seven permutation columns (two chunks, the last one short). Inputs come from
@@ -104,11 +106,94 @@ def test_mont_cumprod_takes_powers_layout():
         _port(lambda t: TP.mont_cumprod(t.expand(49, 3, 16)), x), _ref(_jcumprod, tiled))
 
 
+_jpowers = jax.jit(JP.powers, static_argnames=("n", "field"))
+
+
+@pytest.mark.parametrize("field", ["fp", "fq"])
+@pytest.mark.parametrize("n", [1, 2, 50, 257])
+def test_powers_lm_matches_reference(field, n):
+    """K9's powers entry (its plain version on the CPU) against the
+    reference's powers of each point, 0, 1 (R mod p) and p - 1 among them;
+    n = 257 spans nine of its 32-entry big-table steps; the packed form is
+    the same words."""
+    spec = L.FIELDS[field]
+    x = _vals((2, 3), 30 + n, spec)
+    got = FK.powers_lm(torch.as_tensor(x), n, field)
+    assert got.shape == (2, 3, n, 16)
+    for b in range(2):
+        for q in range(3):
+            np.testing.assert_array_equal(
+                got[b, q].numpy(), _ref(lambda v: _jpowers(v, n=n, field=field), x[b, q]))
+    assert torch.equal(TP.powers(torch.as_tensor(x), n, field), got)
+    packed = FK.powers_lm(torch.as_tensor(x), n, field, packed=True)
+    words = got.numpy().astype(np.int64)
+    want = (words[..., 0::2] | (words[..., 1::2] << 16)).astype(np.uint32).view(np.int32)
+    np.testing.assert_array_equal(packed.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 50, 127, 128, 129, 257, 8191, 8192, 8193, 16385])
+def test_powers_tables_give_pow(n):
+    """The kernel's tables for rows of n: T = 2^t the least power of two with
+    T^2 >= n; small = x^0 .. x^T and big = x^0, x^T, .. built by the kernel's
+    doubling (entry m + j = entry m times entry j); x^i = big[i >> t]
+    small[i mod T] equals pow(x, i, p) at every i < n."""
+    p = L.FP.modulus
+    t = FK.powers_table_log(n)
+    T = 1 << t
+    assert T * T >= n and (t == 0 or (T // 2) ** 2 < n) and t <= FK.POWERS_MAX_LOG
+    x = 0x1234567890ABCDEF1234567890ABCDEF % p + n
+    small = [1, x] + [None] * (T - 1)
+    m = 1
+    while m < T:
+        for j in range(1, m + 1):
+            small[m + j] = small[m] * small[j] % p
+        m *= 2
+    nbig = -(-n // T)
+    big = [1, small[T]][:nbig] + [None] * max(0, nbig - 2)
+    m = 1
+    while m + 1 < nbig:
+        for j in range(1, m + 1):
+            if m + j < nbig:
+                big[m + j] = big[m] * big[j] % p
+        m *= 2
+    for i in range(n):
+        assert big[i >> t] * small[i & (T - 1)] % p == pow(x, i, p), i
+
+
+def test_k9_launch_sizes():
+    """cumprod_launch: a cluster of blocks x CUMPROD_THREADS x per >= n, at
+    most CUMPROD_MAX_BLOCKS blocks and CUMPROD_MAX_PER a thread, no block
+    past the row's end, CUMPROD_PER a thread while a call's blocks number at
+    most two an SM (a proof's 4 and 5 rows of 8,192: 16 blocks a row) and
+    CUMPROD_MAX_PER beyond (a batch's 32 and 40: 8), more where the cluster
+    is full, None past CUMPROD_ONE_LAUNCH_N; powers_per_thread: two blocks
+    an SM, 1 to 8."""
+    assert FK.cumprod_launch(8192, 4) == (16, 4) and FK.cumprod_launch(8192, 5) == (16, 4)
+    assert FK.cumprod_launch(8192, 32) == (8, 8) and FK.cumprod_launch(8192, 40) == (8, 8)
+    assert FK.cumprod_launch(8193) == (13, 5) and FK.cumprod_launch(8192, 16) == (16, 4)
+    assert FK.cumprod_launch(1) == (1, 1) and FK.cumprod_launch(512) == (1, 4)
+    assert FK.cumprod_launch(513) == (2, 3)
+    assert FK.cumprod_launch(FK.CUMPROD_ONE_LAUNCH_N) == (16, 8)
+    assert FK.cumprod_launch(FK.CUMPROD_ONE_LAUNCH_N + 1) is None
+    for rows in (1, 8, 40, 600):
+        for n in list(range(1, 3000, 3)) + [8191, 8192, 8193, 12000, 16383, 16384]:
+            blocks, per = FK.cumprod_launch(n, rows)
+            assert 1 <= blocks <= FK.CUMPROD_MAX_BLOCKS and 1 <= per <= FK.CUMPROD_MAX_PER
+            assert blocks * FK.CUMPROD_THREADS * per >= n > (blocks - 1) * per * FK.CUMPROD_THREADS
+            narrow = rows * -(-n // (FK.CUMPROD_THREADS * FK.CUMPROD_PER)) <= 2 * 132
+            full = -(-n // (FK.CUMPROD_THREADS * FK.CUMPROD_MAX_BLOCKS))  # per in a full cluster
+            assert per <= max(FK.CUMPROD_PER if narrow else FK.CUMPROD_MAX_PER, full)
+    for rows, n, want in ((1, 8191, 1), (6, 8191, 2), (48, 8191, 8), (6, 8193, 2), (1, 1, 1)):
+        assert FK.powers_per_thread(rows, n, 132) == want
+        per = FK.powers_per_thread(rows, n, 132)
+        assert per == 8 or -(-rows * n // (FK.CUMPROD_THREADS * per)) <= 2 * 132
+
+
 def test_wrappers_on_the_cpu_launch_nothing():
     """On CPU tensors every wrapper runs its plain version: no launch is
     counted, and the shapes are checked first."""
     counters = (FK.mont_inv_lm, FK.mont_cumprod_lm, FK.perm_terms_lm, FK.lookup_terms_lm,
-                FK.mont_mul_lm)
+                FK.mont_mul_lm, FK.powers_lm)
     before = [f.launches for f in counters]
     a = torch.as_tensor(_vals((4, 8), 9))
     FK.mont_inv_lm(a[0])
@@ -117,6 +202,7 @@ def test_wrappers_on_the_cpu_launch_nothing():
                        a[1, :1])
     FK.perm_terms_lm(a[None], a, a[0], a[0, :1], a[1, :1], a[2, :4], 3)
     FK.mont_mul_rows(a, a[0])
+    FK.powers_lm(a[0], 5)
     assert [f.launches for f in counters] == before
     with pytest.raises(ValueError, match="shape"):
         FK.mont_inv_lm(a)
@@ -124,6 +210,10 @@ def test_wrappers_on_the_cpu_launch_nothing():
         FK.mont_cumprod_lm(a.long())
     with pytest.raises(ValueError, match="shape"):
         FK.perm_terms_lm(a[None], a[:3], a[0], a[0, :1], a[1, :1], a[2, :4], 3)
+    with pytest.raises(ValueError, match="n = 0"):
+        FK.powers_lm(a[0], 0)
+    with pytest.raises(TypeError, match="dtype"):
+        FK.powers_lm(a[0].long(), 4)
 
 
 def test_mont_mul_rows_matches_limbs():

@@ -6,8 +6,9 @@ synthetic_div_plain), against the JAX package's taiga_tpu.ops.poly
 CPU): n in {2, 37, 64}, C and Q of 1 and a few, a leading batch axis
 against one stack at a time, shared and per-polynomial points (with a
 point_inv that is not the point's inverse), and the values 0, R mod p and
-p - 1 among the coefficients, points and weights; exact equality. Also the
-wrappers' refusals and the source list. The kernels themselves are held
+p - 1 among the coefficients, points and weights (and a stack of p - 1
+only at nine points, where K12's unreduced sums are largest); exact
+equality. Also the wrappers' refusals and the source list. The kernels themselves are held
 against the plain versions on the card (chip_smoke.py, phase_poly)."""
 
 import os
@@ -76,6 +77,16 @@ def test_eval_polys_lm_matches_reference(n, C, Q):
         _eq(got[b], JP.eval_polys_at_points(_j(coeffs[b]), _j(points[b])), f"stack {b}")
     # the public entry point routes to the wrapper
     assert torch.equal(TP.eval_polys_at_points(_t(coeffs[0]), _t(points[0])), got[0])
+
+
+def test_eval_polys_lm_largest_sums_match_reference():
+    """Every coefficient p - 1, at nine points with p - 1 among them: the
+    products' unreduced sums are largest (on the card a lane sums eight of
+    them before its one reduction)."""
+    coeffs = np.broadcast_to(TL.int_to_limbs(TL.FP.modulus - 1), (2, 37, 16)).copy()
+    points = _vals((9,), 9)
+    got = FK.eval_polys_lm(_t(coeffs), _t(points))
+    _eq(got, JP.eval_polys_at_points(_j(coeffs), _j(points)), "p - 1")
 
 
 @pytest.mark.parametrize("n", NS)

@@ -10,7 +10,14 @@ of 8. A later kernel slice adds a row.
   grand_products  K8 mont_inv_lm, K9 mont_cumprod_lm (both directions) and
                   K10 perm_terms_lm / lookup_terms_lm at a proof's and a
                   batch's shapes (P permutation columns in chunks of
-                  CHUNK, LOOKUPS lookups a proof, rows of 2^13).
+                  CHUNK, LOOKUPS lookups a proof, rows of 2^13); then
+                  K9's powers tables (powers_lm) at the main path's calls:
+                  a proof's query evaluations (6 points) and x3
+                  evaluation (1) of 2^13 - 1, packed as K12 takes them,
+                  K14's tables (6 of 2^13 + 1) as limbs, and a batch's
+                  (48, 8, 48). A checkout before K9's powers entry runs
+                  ops/poly.py::powers, a scan of the expanded row (K9's
+                  mont_cumprod_lm), as limbs.
   ntt             the public transforms of ops/ntt.py: a proof's and a
                   batch's 12 advice columns into coefficients (intt,
                   (1, 12, 2^13) and (8, 12, 2^13)), their
@@ -30,8 +37,10 @@ of 8. A later kernel slice adds a row.
                   the multiopen's weighted sum of its widest point group
                   and of its G groups (mont_linear_combo), its division
                   (synthetic_div, (B, G, 2^13), a point a polynomial) and
-                  its x3 evaluation ((B, G, 2^13) at one point). A
-                  checkout before K12-K14 runs them as plain torch ops.
+                  its x3 evaluation ((B, G, 2^13) at one point); and a
+                  trivial resource logic's query evaluations ((1, 81,
+                  2^12) at 6 points). A checkout before K12-K14 runs
+                  them as plain torch ops.
   lookup          the last plain-torch programs of the main path at a
                   proof's and a batch's shapes (B = 1, 8): the lookups'
                   permuted pairs (lookup_sort.permute_pairs_device, (5 B,
@@ -46,8 +55,9 @@ of 8. A later kernel slice adds a row.
 
 Each call is timed three ways: the stream time between two CUDA events
 after a warm-up call; under torch.profiler, its device operations (kernels,
-copies, fills) and their summed device time, and the slice's own kernels'
-launches, time and fastest and slowest launch; and, where the checkout has
+copies, fills) and their summed device time, each kernel's time by name,
+and the slice's own kernels' launches, time and fastest and slowest launch;
+and, where the checkout has
 the slice's kernels, the plain version's time (ff_kernels.plain_versions,
 CUDA events, one call). With --check each call is first held against its
 plain version bit for bit (a short first call of a new build;
@@ -67,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -79,9 +90,17 @@ P, CHUNK, LOOKUPS = 13, 4, 5  # the compliance circuit's permutation columns and
 BATCH = 8
 
 
+K9 = ("k_cumprod_cluster", "k_cumprod_totals", "k_cumprod_apply")  # K9's kernels, old and new
+# the powers tables at the main path's calls, (what, points, n, packed): K12's
+# (query evals, x3) packed, K14's as limbs
+POWERS = (("query evals", 6, N - 1, True), ("x3", 1, N - 1, True),
+          ("K14 tables", 6, N + 1, False), ("query evals", 6 * BATCH, N - 1, True),
+          ("x3", BATCH, N - 1, True), ("K14 tables", 6 * BATCH, N + 1, False))
+
+
 def grand_product_calls(mods, fe):
     """(name, fn, symbols) at a proof's and a batch's shapes."""
-    FK = mods["FK"]
+    FK, PL = mods["FK"], mods["PL"]
     calls = []
     for B in (1, BATCH):
         C = -(-P // CHUNK)
@@ -92,17 +111,21 @@ def grand_product_calls(mods, fe):
         tot = rows[:, -1].contiguous()
         calls += [
             (f"mont_inv B={B}", lambda tot=tot: FK.mont_inv_lm(tot), ("k_mont_inv",)),
-            (f"mont_cumprod B={B}", lambda rows=rows: FK.mont_cumprod_lm(rows),
-             ("k_cumprod_totals", "k_cumprod_apply")),
+            (f"mont_cumprod B={B}", lambda rows=rows: FK.mont_cumprod_lm(rows), K9),
             (f"mont_cumprod reverse B={B}",
-             lambda rows=rows: FK.mont_cumprod_lm(rows, reverse=True),
-             ("k_cumprod_totals", "k_cumprod_apply")),
+             lambda rows=rows: FK.mont_cumprod_lm(rows, reverse=True), K9),
             (f"perm_terms B={B}",
              lambda a=(cols, sigma, omega, beta, gamma, delta): FK.perm_terms_lm(*a, CHUNK),
              ("k_perm_terms",)),
             (f"lookup_terms B={B}", lambda a=(*lk, beta, gamma): FK.lookup_terms_lm(*a),
              ("k_lookup_terms",)),
         ]
+    for what, Q, n, packed in POWERS:
+        if hasattr(FK, "powers_lm"):
+            fn = (lambda x=fe(Q), n=n, packed=packed: FK.powers_lm(x, n, "fp", packed))
+        else:  # a checkout before K9's powers entry: poly.powers scans as limbs
+            fn = (lambda x=fe(Q), n=n: PL.powers(x, n))
+        calls.append((f"powers {what} ({Q}, {n})", fn, ("k_powers",) + K9))
     return calls
 
 
@@ -147,6 +170,7 @@ def ntt_calls(mods, fe):
 
 C_ALL, Q_ROTS = 90, 6  # the compliance circuit's committed columns and query rotations
 GROUPS = (90, 21, 8, 8, 3, 5)  # its multiopen's point groups (queries a point)
+RL_C = 81  # a trivial resource logic's committed columns at k = 12 (its 6 rotations as Q_ROTS)
 
 
 def poly_calls(mods, fe):
@@ -170,6 +194,10 @@ def poly_calls(mods, fe):
             (f"eval_polys x3 B={B}", lambda a=agg, x=x3: PL.eval_polys_at_points(a, x),
              ("k_eval_polys", "k_eval_reduce")),
         ]
+    rl, rx = fe(1, RL_C, N // 2), fe(1, Q_ROTS)
+    calls.append(("eval_polys resource logic k=12 B=1",
+                  lambda c=rl, x=rx: PL.eval_polys_at_points(c, x),
+                  ("k_eval_polys", "k_eval_reduce")))
     return calls
 
 
@@ -230,9 +258,9 @@ SLICES = {  # name: (the wrapper that marks the kernels, source, calls; a checko
 
 def profiled(fn, reps: int, syms) -> dict:
     """fn() run reps times under torch.profiler: per call, its device
-    operations and their summed device time, ms, and the launches and time
-    of the kernels named by syms, with their fastest and slowest launch and
-    each named kernel's time."""
+    operations and their summed device time, ms, each operation's time by
+    name, and the launches and time of the kernels named by syms, with their
+    fastest and slowest launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -245,11 +273,15 @@ def profiled(fn, reps: int, syms) -> dict:
         torch.cuda.synchronize()
     ev = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
     own = [e.duration_ns() / 1e6 for e in ev if any(s in e.name() for s in syms)]
-    by_kernel = {s: sum(e.duration_ns() for e in ev if s in e.name()) / 1e6 / reps for s in syms}
+    by_kernel: dict[str, float] = {}  # every device operation's time by its name
+    for e in ev:
+        m = re.search(r"\bk_\w+", e.name())
+        name = m.group(0) if m else e.name()[:40]
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.duration_ns() / 1e6 / reps
     return {"ops": len(ev) / reps, "device_ms": sum(e.duration_ns() for e in ev) / 1e6 / reps,
             "launches": len(own) / reps, "kernel_ms": sum(own) / reps,
             "min": min(own, default=None), "max": max(own, default=None),
-            "by_kernel": {s: ms for s, ms in by_kernel.items() if ms}}
+            "by_kernel": by_kernel}
 
 
 def main(argv=None) -> int:
