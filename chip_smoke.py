@@ -39,11 +39,12 @@ exit code and no result line:
      the bits in one launch) on both fields at a fixed-base chunk's 8
      columns and the general MSM's 32 windows of 256 buckets, empty
      buckets among them, and timed at both; the grand products' kernels
-     (csrc/grand_product.cu): K8 (Fermat's inversion, one thread a lane,
-     on both fields), K9 (prefix and suffix products: both ways at rows of
-     1 to 2,049 with a zero, at poly.powers' expanded layout and at the
-     fixed-base table's 262,144 Fq lanes) and K10 (the numerators and
-     denominators, its permutation and lookup entries), with the lanes 0,
+     (csrc/grand_product.cu): K8 (the divsteps inversion, one thread a
+     lane, on both fields, on and off a warp's 32 lanes), K9 (prefix
+     and suffix products: both ways at rows of 1 to 2,049 with a zero,
+     at poly.powers' expanded layout and at the fixed-base table's
+     262,144 Fq lanes) and K10 (the numerators and denominators, its
+     permutation and lookup entries), with the lanes 0,
      1 and p - 1, at a single proof's and a batch of 8's shapes, timed at
      both (profiler); the NTT's kernel K11 (csrc/ntt.cu, phase_ntt), at
      radix 4 and at radix 2, in all four transforms at every k from 1 to
@@ -1164,7 +1165,17 @@ def phase_bucket_weights(gen, dev):
     return res
 
 
-INV_STAGES = 254 + 75  # K8's chain: p - 2's squarings and its other set bits (both fields)
+# K8's chain (csrc/grand_product.cu k_mont_inv): 20 batches of 30 divsteps,
+# each batch's matrix update, one product by R^3; and the 32-bit operations
+# a lane needs: a divstep's masks, conditional negations, adds and shifts
+# (DIVSTEP_OPS), a batch's update of (d, e) and (f, g) (10 word products a
+# limb, lo and hi, over 9 limbs), the product (the Fermat chain the kernel
+# ran before was 254 + 75 products of MM_IMADS, 329 stages)
+INV_DIVSTEPS, INV_BATCHES = 600, 20
+INV_STAGES = INV_DIVSTEPS + INV_BATCHES + 1
+DIVSTEP_OPS = 27
+INV_OPS = INV_DIVSTEPS * DIVSTEP_OPS + INV_BATCHES * 10 * 9 * 2 + MM_IMADS
+INV_EDGE_C = (1, 4, 32, 37, 64)  # K8's lanes: a proof's 4, a batch's 32, and off a warp
 # K9's row lengths: a one-block tile of 512 (4 a thread) less one, at and
 # past it, the old tiles' 1,024 edges, a proof's row plus one, the longest
 # row of one launch (a cluster of 16 blocks, 8 a thread: ff_kernels
@@ -1204,7 +1215,8 @@ def phase_grand_products(pk, gen, dev):
     on both fields and at batch_inv's (1, 16) in Fq; K9 forward and reverse
     with a zero in a row, at SCAN_EDGE_N, at an expanded row (stride 0) and
     at the fixed-base table's 262,144 lanes in Fq; K9's powers entry at
-    POWERS_EDGE_N on both fields, limbs and packed. Then each timed at both
+    POWERS_EDGE_N on both fields, limbs and packed; K8 at INV_EDGE_C lanes
+    on both fields with 0, 1 and p - 1 first. Then each timed at both
     shapes (the profiler's device time, a call's launches summed, counted
     by the wrappers), and the powers at POWERS_SHAPES."""
     import torch
@@ -1225,13 +1237,13 @@ def phase_grand_products(pk, gen, dev):
         err = max(err, compare(name, got, want if isinstance(want, tuple) else (want,)))
         return ms
 
-    # K8: both fields' edges, batch_inv's one Fq lane, the grand products' C
+    # K8: both fields' edges (0, 1, p - 1 in the first lanes; batch_inv's
+    # one Fq lane), lanes on and off a warp's 32
     for field in ("fp", "fq"):
-        a = rows_fe(gen, (64,), L.FIELDS[field], dev)
-        held(f"mont_inv[{field}]", FK.mont_inv_lm(a, field), lambda: FK.mont_inv_lm(a, field))
-        one = a[:1]
-        held(f"mont_inv[{field}, 1 lane]", FK.mont_inv_lm(one, field),
-             lambda: FK.mont_inv_lm(one, field))
+        for C in INV_EDGE_C:
+            a = rows_fe(gen, (C,), L.FIELDS[field], dev)
+            held(f"mont_inv[{field}, {C} lanes]", FK.mont_inv_lm(a, field),
+                 lambda: FK.mont_inv_lm(a, field))
     # K9: row lengths at and across the tiles' and clusters' edges, a zero in a row
     for field in ("fp", "fq"):
         for m in SCAN_EDGE_N:
@@ -1313,7 +1325,7 @@ def phase_grand_products(pk, gen, dev):
               "lookup_terms": kernel_ms("lookup_terms", lambda: FK.lookup_terms_lm(*lin), 20)}
         C, Cl = B * nc, B * nlk
         bounds = {
-            "mont_inv": bound_ms(2 * fe * C, INV_STAGES * MM_IMADS * C),
+            "mont_inv": bound_ms(2 * fe * C, INV_OPS * C),
             "mont_cumprod": bound_ms(2 * fe * C * n, (n - 1) * MM_IMADS * C),
             # beta delta^j once a (proof, column); then 4 products a column,
             # less each chunk's first two, an element
@@ -1328,13 +1340,15 @@ def phase_grand_products(pk, gen, dev):
             calls = f" of {per_call} launches" if name == "mont_cumprod" else ""
             log(f"{name:18s} at {shapes[name]}: equal; {ms[name]:.6f} ms a call{calls} (plain "
                 f"{plain[name]:.3f} ms, bound {bounds[name][0]:.6f} ms by {bounds[name][1]})"
-                + (f"; one chain of {INV_STAGES} product stages, "
-                   f"{ms[name] / INV_STAGES * 1e3:.3f} us a stage" if name == "mont_inv" else ""))
+                + (f"; one chain of {INV_STAGES} dependent steps ({INV_DIVSTEPS} divsteps, "
+                   f"{INV_BATCHES} updates, a product), {ms[name] / INV_STAGES * 1e3:.4f} us a "
+                   f"step" if name == "mont_inv" else ""))
             res.setdefault(name, {})[key] = dict(ms=ms[name], plain_ms=plain[name],
                                                  bound=bounds[name], B=shapes[name])
     edge_n = "/".join(map(str, SCAN_EDGE_N))
-    log(f"K8-K10 equal to their plain versions on every lane: K8 on fp and fq with 0, 1 and "
-        f"p - 1, K9 at 3 x {edge_n} both ways with a zero, at powers' layout and at 1 x "
+    log(f"K8-K10 equal to their plain versions on every lane: K8 on fp and fq at "
+        f"{'/'.join(map(str, INV_EDGE_C))} lanes with 0, 1 and p - 1, K9 at 3 x {edge_n} "
+        f"both ways with a zero, at powers' layout and at 1 x "
         f"{32 * n} in fq, its powers at 4 x {'/'.join(map(str, POWERS_EDGE_N))} on both "
         f"fields (the points 0, 1, p - 1), limbs and packed, and all at a proof's and a batch "
         f"of {BATCH}'s shapes ({nc} chunks of {P} permutation columns and {nlk} lookups a proof)")
@@ -1491,8 +1505,20 @@ POLY_SHAPES = (  # K12-K14 off the main path's shapes: (kernel, what, n, and its
     ("eval_polys", "every coefficient p - 1", 1000, dict(B=2, C=3, Q=6, top=True)),
     ("eval_polys", "9 points at 2^13, p - 1", N, dict(B=1, C=1, Q=9, top=True)),
     ("eval_polys", "points shared by 2 stacks", 64, dict(B=2, C=3, Q=2, shared=True)),
+    # K13 at 1, 8, 9 and 90 terms (across its runs of 8), every coefficient
+    # and weight p - 1 (the largest lazy sums), off a tile's edge; weights
+    # shared by two stacks; 1,600 terms (past the 1,536 of the design
+    # before); groups of 1, 8, 9 and 17 terms gathered from 20 columns, with
+    # and without an addend
     ("linear_combo", "weights shared by 2 stacks", 65, dict(B=2, C=3, shared=True)),
     ("linear_combo", "one column of one", 1, dict(B=1, C=1)),
+    ("linear_combo", "1,600 terms", 33, dict(B=1, C=1600)),
+) + tuple(("linear_combo", f"{c} terms, p - 1", 8193, dict(B=2, C=c, top=True))
+          for c in (1, 8, 9, 90)) + (
+    ("linear_combo", "groups of 1/8/9/17, p - 1", 100,
+     dict(B=2, C=20, sizes=(1, 8, 9, 17), top=True)),
+    ("linear_combo", "groups of 1/8/9/17 with an addend", 1025,
+     dict(B=2, C=20, sizes=(1, 8, 9, 17), addend=True)),
     ("synthetic_div", "a shared point", 2049, dict(B=2, G=1, shared=True)),
 ) + tuple(("synthetic_div", f"n = {n}", n, dict(B=1, G=3)) for n in (1, 2, 1024, 1025))
 
@@ -1514,14 +1540,29 @@ def query_shape(pk, dev):
     return C, len(groups), tuple(groups.values())
 
 
+def group_cols(gen, C: int, sizes) -> list[int]:
+    """The columns of K13's grouped call: each group distinct columns of C
+    drawn on the card's generator, the first all C of them when it is as
+    wide (the multiopen's rotation 0 queries every table); a column in
+    several groups, as the multiopen's are."""
+    import torch
+
+    cols = []
+    for z in sizes:
+        cols += torch.randperm(C, generator=gen, device=gen.device)[:z].tolist()
+    return cols
+
+
 def poly_bound(kernel: str, B: int, n: int, C: int = 0, Q: int = 0, G: int = 0,
-               shared: bool = False):
+               shared: bool = False, sizes=None, cols=None, addend: bool = False):
     """K12-K14's bound: the inputs read once and the output written once
     (64 B an element), against the products the function needs: K12 B Q C n
     terms of its dot products, each a wide product left unreduced, one
     reduction a sum of EVAL_RUN terms, and each point's n - 1 powers; K13
-    B C n; K14 two a position (a_j p^j and the scale) and each distinct
-    point's and inverse's n powers."""
+    the same for its B n sums a group (a term a wide product, a run of
+    EVAL_RUN a reduction; each distinct column read once, the addend's
+    elements once); K14 two a position (a_j p^j and the scale) and each
+    distinct point's and inverse's n powers."""
     fe = 64
     if kernel == "eval_polys":
         sums = B * Q * C * -(-n // EVAL_RUN)
@@ -1529,8 +1570,13 @@ def poly_bound(kernel: str, B: int, n: int, C: int = 0, Q: int = 0, G: int = 0,
                         WIDE_IMADS * B * Q * C * n + REDC_IMADS * sums
                         + MM_IMADS * B * Q * (n - 1))
     if kernel == "linear_combo":
-        return bound_ms(fe * (B * C * n + (C if shared else B * C) + B * n),
-                        MM_IMADS * B * C * n)
+        sizes = sizes or (C,)
+        S, G = sum(sizes), len(sizes)
+        read = len(set(cols)) if cols is not None else S
+        runs = B * n * sum(-(-z // EVAL_RUN) for z in sizes)
+        return bound_ms(fe * (B * read * n + (S if shared else B * S) + B * G * n
+                              + (B * G * n if addend else 0)),
+                        WIDE_IMADS * B * S * n + REDC_IMADS * runs)
     R, P = B * G, 1 if shared else B * G
     return bound_ms(fe * (2 * R * n + 2 * P), MM_IMADS * (2 * R * n + 2 * P * n))
 
@@ -1544,8 +1590,9 @@ def phase_poly(pk, gen, dev):
     edges, more than 8 points, a shared point or weights read through a
     stride of 0), then at the main path's calls: a proof's and a batch of
     BATCH's query evaluations (the compliance circuit's C tables at its Q
-    rotations, n = 2^K), the multiopen's (the widest point group's weighted
-    sum, the G groups' division, their weighted sum and the x3
+    rotations, n = 2^K), the multiopen's (its point groups' aggregate
+    gathered from the C tables in one launch, the G groups' division, their
+    weighted sum h, f = h plus the groups' weighted sum, and the x3
     evaluation) at B = 1 and BATCH, and a trivial resource logic's query
     evaluations at k = 12, each timed (profiler device time of the kernel's
     own launches, and of the whole call with its powers tables on K9)
@@ -1566,14 +1613,22 @@ def phase_poly(pk, gen, dev):
                 rows[r] = c
         return x
 
-    def call(kernel, n, B=1, C=1, Q=1, G=1, shared=False, top=False):
+    def call(kernel, n, B=1, C=1, Q=1, G=1, shared=False, top=False, sizes=None, cols=None,
+             addend=False):
         if kernel == "eval_polys":
             a = consts[2].expand(B, C, n, 16).contiguous() if top else elems(B, C, n)
             x = elems(Q) if shared else elems(B, Q)
             return lambda: FK.eval_polys_lm(a, x)
         if kernel == "linear_combo":
-            a, w = elems(B, C, n), elems(C) if shared else elems(B, C)
-            return lambda: FK.linear_combo_lm(a, w)
+            S = sum(sizes) if sizes else C
+            a = consts[2].expand(B, C, n, 16).contiguous() if top else elems(B, C, n)
+            w = (consts[2].expand(B, S, 16).contiguous() if top
+                 else elems(S) if shared else elems(B, S))
+            if sizes is None:
+                return lambda: FK.linear_combo_lm(a, w)
+            cols = cols if cols is not None or S == C else group_cols(gen, C, sizes)
+            h = elems(B, len(sizes), n) if addend else None
+            return lambda: FK.linear_combo_lm(a, w, "fp", cols, sizes, h)
         a = elems(B, G, n)
         p, pinv = (elems(4)[3] if shared else elems(B, G) for _ in range(2))
         return lambda: FK.synthetic_div_lm(a, p, pinv)
@@ -1589,11 +1644,11 @@ def phase_poly(pk, gen, dev):
     t0 = time.perf_counter()
     for kernel, what, n, kw in POLY_SHAPES:
         held(kernel, what, call(kernel, n, **kw))
-    wide = FK.LINEAR_COMBO_MAX_C + 1
-    refused = (  # no coefficient; more columns than K13's shared memory holds weights for
+    many = FK.LINEAR_COMBO_MAX_GROUPS + 1
+    refused = (  # no coefficient; more groups than K13 passes offsets for
         lambda: FK.eval_polys_lm(elems(1, 2, 1)[:, :, :0], elems(1, 1)),
-        lambda: FK.linear_combo_lm(torch.zeros((1, wide, 1, 16), dtype=torch.int32, device=dev),
-                                   elems(1, 1).expand(1, wide, 16)))
+        lambda: FK.linear_combo_lm(torch.zeros((1, many, 1, 16), dtype=torch.int32, device=dev),
+                                   elems(1, 1).expand(1, many, 16), "fp", None, (1,) * many))
     for fn in refused:
         try:
             fn()
@@ -1609,11 +1664,15 @@ def phase_poly(pk, gen, dev):
     # (kernel, what, n, sizes); the kernels line's row is each kernel's first
     # call at B = 1, its batch_ keys the same call at B = BATCH
     path = []
+    # K13's grouped call on the columns the key's queries take (a seeded
+    # draw of each group's distinct columns, the multiopen's sizes)
+    cols = group_cols(gen, C, groups)
     for B in (1, BATCH):
         path += [("eval_polys", "query evals", N, dict(B=B, C=C, Q=Q)),
-                 ("linear_combo", "widest group", N, dict(B=B, C=max(groups))),
+                 ("linear_combo", "aggregate", N, dict(B=B, C=C, sizes=groups, cols=cols)),
                  ("synthetic_div", "groups", N, dict(B=B, G=G)),
                  ("linear_combo", "groups", N, dict(B=B, C=G)),
+                 ("linear_combo", "f", N, dict(B=B, C=G, sizes=(G,), addend=True)),
                  ("eval_polys", "x3", N, dict(B=B, C=G, Q=1))]
     path.append(("eval_polys", f"resource logic k={RL_K}", 1 << RL_K,
                  dict(B=1, C=RL_QUERY_SHAPE[0], Q=RL_QUERY_SHAPE[1])))
@@ -1635,7 +1694,7 @@ def phase_poly(pk, gen, dev):
                 break
         seen, busy, ops = best
         bound = poly_bound(kernel, n=n, **kw)
-        key = f"{what} " + ", ".join(f"{k}={v}" for k, v in kw.items()) + f", n={n}"
+        key = f"{what} " + ", ".join(f"{k}={v}" for k, v in kw.items() if k != "cols") + f", n={n}"
         first.setdefault(kernel, what)
         shapes[kernel][key] = dict(ms=ms, plain_ms=plain, bound=bound, call_ms=busy / 20,
                                    call_ops=ops / 20, call_seen=seen,
@@ -1959,7 +2018,8 @@ KERNELS = [
      "none: the XLA program taiga_tpu/ops/poly.py:66 (eval_polys_at_points)",
      ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
     ("linear_combo", "linear_combo_lm", "taiga_tpu_torch/csrc/poly.cu",
-     "none: the XLA program taiga_tpu/ops/poly.py:94 (mont_linear_combo)",
+     "none: the XLA programs taiga_tpu/ops/poly.py:94 (mont_linear_combo) and "
+     "taiga_tpu/plonk/hybrid_open.py:60-76 (agg_fn, f_fn)",
      ("native", "device", "batch", "tx", "vamp_ir", "parallel")),
     ("synthetic_div", "synthetic_div_lm", "taiga_tpu_torch/csrc/poly.cu",
      "none: the XLA program taiga_tpu/ops/poly.py:77 (synthetic_div)",

@@ -6,11 +6,12 @@
 // convert.cu).
 //
 // The Montgomery product comes in two forms with the same limbs: fe_mul,
-// generic CIOS on carry chains (K1-K8, K10, K13, K14 and the rest), and
+// generic CIOS on carry chains (K1-K7, K10, K14 and the rest), and
 // fe_mul_pasta, the same steps with the reduction row written for the
-// Pasta moduli's words in 64-bit sums (K9, its powers entry, and K11). K12
-// sums unreduced 512-bit products (mul_acc_wide) and reduces each sum
-// once with the same rows (redc_pasta_sum).
+// Pasta moduli's words in 64-bit sums (K8's last product, K9, its powers
+// entry, and K11). K12 and K13 sum unreduced 512-bit products
+// (mul_acc_wide) and reduce each sum once with the same rows
+// (redc_pasta_sum). K8's divsteps run on their own constants (kInv).
 //
 // Replaces the in-kernel helpers of taiga_tpu/ops/ff_kernels.py
 // (_mm_cios, _madd, _msub, _mul15, _ec_add_proj_core). Memory layout is the
@@ -49,6 +50,20 @@ struct FieldConsts {
 };
 
 __constant__ FieldConsts kFields[2];
+
+// K8's constants (csrc/grand_product.cu): the modulus in nine signed
+// 30-bit limbs (limb i holds bits 30i .. 30i + 29; every limb nonnegative),
+// p^-1 mod 2^30, and R^3 mod p (R = 2^256), which takes the divsteps' plain
+// inverse (aR)^-1 to a^-1 R in one Montgomery product.
+constexpr int kLimbs30 = 9;
+
+struct InvConsts {
+  int32_t p30[kLimbs30];
+  uint32_t pinv30;
+  Fe r3;
+};
+
+__constant__ InvConsts kInv[2];
 
 // --- limb-major loads / stores ----------------------------------------------
 
@@ -345,7 +360,7 @@ __device__ __forceinline__ Fe fe_mul_pasta(const Fe& a, const Fe& b, const Field
   return reduce_once(r, t[kWords], F);
 }
 
-// --- lazily reduced dot products (K12) -------------------------------------
+// --- lazily reduced dot products (K12, K13) --------------------------------
 //
 // A sum of k products of canonical elements, S < k p^2, is kept unreduced
 // in 16 words (k <= 15: p < 2^254 (1 + 2^-127), so 15 p^2 < 15 2^508
@@ -482,12 +497,26 @@ __device__ __forceinline__ void ec_add_proj(Fe& x3, Fe& y3, Fe& z3,
 
 }  // namespace taiga
 
-// Fills one field's constants; the host calls it once per field after load.
-extern "C" int taiga_set_field(int field, const uint32_t* p, uint32_t n0) {
+// Fills one field's constants (K8's from p and r3 = R^3 mod p); the host
+// calls it once per field after load.
+extern "C" int taiga_set_field(int field, const uint32_t* p, uint32_t n0, const uint32_t* r3) {
   if (field < 0 || field > 1) return (int)cudaErrorInvalidValue;
   taiga::FieldConsts c;
   for (int j = 0; j < taiga::kWords; j++) c.p.w[j] = p[j];
   c.n0 = n0;
-  return (int)cudaMemcpyToSymbol(taiga::kFields, &c, sizeof(c),
-                                 field * sizeof(taiga::FieldConsts));
+  cudaError_t rc = cudaMemcpyToSymbol(taiga::kFields, &c, sizeof(c),
+                                      field * sizeof(taiga::FieldConsts));
+  if (rc != cudaSuccess) return (int)rc;
+  taiga::InvConsts v;
+  for (int i = 0; i < taiga::kLimbs30; i++) {  // bits 30i .. 30i + 29 of p
+    const int j = 30 * i / 32, s = 30 * i % 32;
+    uint64_t w = p[j];
+    if (j + 1 < taiga::kWords) w |= (uint64_t)p[j + 1] << 32;
+    v.p30[i] = (int32_t)((w >> s) & 0x3FFFFFFFu);
+  }
+  uint32_t inv = 1;  // p^-1 mod 2^32 by Newton's iteration (p odd): 1, 2, 4, .. 32 bits
+  for (int k = 0; k < 5; k++) inv *= 2u - p[0] * inv;
+  v.pinv30 = inv & 0x3FFFFFFFu;
+  for (int j = 0; j < taiga::kWords; j++) v.r3.w[j] = r3[j];
+  return (int)cudaMemcpyToSymbol(taiga::kInv, &v, sizeof(v), field * sizeof(taiga::InvConsts));
 }

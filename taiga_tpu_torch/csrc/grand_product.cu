@@ -14,10 +14,23 @@
 // canonical Montgomery element, and field products and sums are exact, so
 // any order of association gives the reference's limbs.
 //
-// K8 mont_inv (taiga_mont_inv): a^(p-2) for each of C lanes, 0 -> 0, one
-// thread a lane, the chain in registers: 254 squarings and 75 products
-// (MSB first from the top bit), bound by one thread's latency of 329
-// dependent products, not by bytes or operations (C is 1 to a few dozen).
+// K8 mont_inv (taiga_mont_inv: k_mont_inv): the inverse of each of C lanes
+// in Montgomery form, 0 -> 0, one thread a lane, by Bernstein and Yang's
+// constant-time divsteps ("safegcd", Fast constant-time gcd computation
+// and modular inversion, 2019) as libsecp256k1's modinv32 runs them: the
+// values in nine signed 30-bit limbs; 20 batches of 30 divsteps on the low
+// words of f and g alone, each batch's 2x2 transition matrix then applied
+// to (f, g) and, mod p, to (d, e). Then d = +-(aR)^-1 mod p, and one
+// product by R^3 mod p (fe_mul_pasta) gives (aR)^-1 R^3 R^-1 = a^-1 R.
+// C is 1 to a few dozen, so a call is one thread's chain: 600 divsteps of
+// about 17 dependent 32-bit operations, 20 matrix updates and one product,
+// where Fermat's a^(p-2) was 329 dependent generic products (0.197 ms on
+// the NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6). Constant time on
+// purpose (the grand products invert denominators made from the witness):
+// a fixed count of iterations, no branch or address that depends on the
+// value. Fermat's chain on fe_mul_pasta with a dedicated squaring and a
+// fixed 4-bit window, measured beside it, took 0.135-0.137 ms against the
+// divsteps' 0.024 (PERF.md section 6) and was removed.
 //
 // K9 mont_cumprod (taiga_cumprod: k_cumprod_cluster; k_cumprod_totals and
 // k_cumprod_apply for a longer row): inclusive prefix products along axis 0
@@ -39,8 +52,12 @@
 // thread of 8 in place of 14 of 4, 18% faster at 32 rows). A longer row
 // (the cold table build's batch_inv, 262,144) keeps the two passes over
 // tiles of 1,024: tile products, then the scan with the earlier tiles'
-// product as its carry. The function needs n - 1 products a row; the card
-// is bound by bytes at these widths (each element read once, written once).
+// product as its carry: 0.062 ms, where the cluster scan window by window
+// (16 dependent launches of 16,384, each carrying the last product of the
+// window before) took 0.61 (NVIDIA H100 80GB HBM3 at 700 W, PERF.md
+// section 6), so the windowed form was not kept.
+// The function needs n - 1 products a row; the card is bound by bytes at
+// these widths (each element read once, written once).
 //
 // K9 powers (taiga_powers: k_powers): x^0 .. x^(n-1) of each of R points
 // with no scan along the row: every block builds x^j for j <= T (T = 2^t,
@@ -119,26 +136,156 @@ __device__ Fe block_product(Fe x, Fe* warp_sum, const FieldConsts& F) {
 // K8
 // ---------------------------------------------------------------------------
 
+// Divsteps count. Bernstein and Yang's delta = 1 divstep needs at most 741
+// steps for inputs below 2^256 (their Theorem 11.2, (49 d + 57) / 17 at d =
+// 256). This is the half-delta variant (zeta = -(delta + 1/2), starting at
+// delta = 1/2), for which Wuille's hull computation (libsecp256k1's
+// doc/safegcd_implementation.md, and its modinv32, which runs 20 x 30 = 600
+// steps) bounds the steps at 590 for any f odd and g below 2^256. Both
+// Pasta moduli are 255 bits (2^254 < p < 2^255) and g = aR mod p < p, so
+// 600 >= 590 suffice on both fields; tests/test_torch_grand_product.py's
+// model of this loop checks g = 0 after them on edge and seeded values.
+constexpr int kDivBatches = 20;  // batches of 30 divsteps: 600 in all
+constexpr int32_t kM30 = 0x3FFFFFFF;
+using taiga::kLimbs30;
+
+struct Trans {  // a batch's transition matrix [u v; q r], entries within +-2^30
+  int32_t u, v, q, r;
+};
+
+// 30 divsteps on the low words f0 (odd) and g0; returns the new zeta.
+// Every step is masks and adds: no branch on the value.
+__device__ __forceinline__ int32_t divsteps_30(int32_t zeta, uint32_t f, uint32_t g, Trans& t) {
+  uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+  for (int i = 0; i < 30; i++) {
+    const uint32_t c1 = (uint32_t)(zeta >> 31);  // zeta < 0
+    const uint32_t c2 = 0u - (g & 1u);           // g odd
+    const uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+    g += x & c2;
+    q += y & c2;
+    r += z & c2;
+    const uint32_t c3 = c1 & c2;  // swap: zeta < 0 and g odd
+    zeta = (zeta ^ (int32_t)c3) - 1;
+    f += g & c3;
+    u += q & c3;
+    v += r & c3;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
+  }
+  t = Trans{(int32_t)u, (int32_t)v, (int32_t)q, (int32_t)r};
+  return zeta;
+}
+
+// [d, e] = (t [d, e] + p [md, me]) / 2^30, md and me chosen so that the low
+// 30 bits vanish (and d, e stay in (-2p, p)).
+__device__ __forceinline__ void update_de(int32_t (&d)[kLimbs30], int32_t (&e)[kLimbs30],
+                                          const Trans& t, const taiga::InvConsts& V) {
+  const int32_t sd = d[kLimbs30 - 1] >> 31, se = e[kLimbs30 - 1] >> 31;
+  int32_t md = (t.u & sd) + (t.v & se), me = (t.q & sd) + (t.r & se);
+  int64_t cd = (int64_t)t.u * d[0] + (int64_t)t.v * e[0];
+  int64_t ce = (int64_t)t.q * d[0] + (int64_t)t.r * e[0];
+  md -= (int32_t)((V.pinv30 * (uint32_t)cd + (uint32_t)md) & kM30);
+  me -= (int32_t)((V.pinv30 * (uint32_t)ce + (uint32_t)me) & kM30);
+  cd += (int64_t)V.p30[0] * md;
+  ce += (int64_t)V.p30[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < kLimbs30; i++) {
+    cd += (int64_t)t.u * d[i] + (int64_t)t.v * e[i] + (int64_t)V.p30[i] * md;
+    ce += (int64_t)t.q * d[i] + (int64_t)t.r * e[i] + (int64_t)V.p30[i] * me;
+    d[i - 1] = (int32_t)cd & kM30;
+    e[i - 1] = (int32_t)ce & kM30;
+    cd >>= 30;
+    ce >>= 30;
+  }
+  d[kLimbs30 - 1] = (int32_t)cd;
+  e[kLimbs30 - 1] = (int32_t)ce;
+}
+
+// [f, g] = t [f, g] / 2^30 (exact: the divsteps cleared the low 30 bits).
+__device__ __forceinline__ void update_fg(int32_t (&f)[kLimbs30], int32_t (&g)[kLimbs30],
+                                          const Trans& t) {
+  int64_t cf = (int64_t)t.u * f[0] + (int64_t)t.v * g[0];
+  int64_t cg = (int64_t)t.q * f[0] + (int64_t)t.r * g[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i < kLimbs30; i++) {
+    cf += (int64_t)t.u * f[i] + (int64_t)t.v * g[i];
+    cg += (int64_t)t.q * f[i] + (int64_t)t.r * g[i];
+    f[i - 1] = (int32_t)cf & kM30;
+    g[i - 1] = (int32_t)cg & kM30;
+    cf >>= 30;
+    cg >>= 30;
+  }
+  f[kLimbs30 - 1] = (int32_t)cf;
+  g[kLimbs30 - 1] = (int32_t)cg;
+}
+
+// r in (-2p, p), negated when sign < 0, brought to [0, p) with 30-bit limbs:
+// add p if negative, negate, carry; add p if still negative, carry.
+__device__ __forceinline__ void normalize(int32_t (&r)[kLimbs30], int32_t sign,
+                                          const taiga::InvConsts& V) {
+  int32_t add = r[kLimbs30 - 1] >> 31;
+  const int32_t neg = sign >> 31;
+#pragma unroll
+  for (int i = 0; i < kLimbs30; i++) r[i] = ((r[i] + (V.p30[i] & add)) ^ neg) - neg;
+#pragma unroll
+  for (int i = 0; i + 1 < kLimbs30; i++) {
+    r[i + 1] += r[i] >> 30;
+    r[i] &= kM30;
+  }
+  add = r[kLimbs30 - 1] >> 31;
+#pragma unroll
+  for (int i = 0; i < kLimbs30; i++) r[i] += V.p30[i] & add;
+#pragma unroll
+  for (int i = 0; i + 1 < kLimbs30; i++) {
+    r[i + 1] += r[i] >> 30;
+    r[i] &= kM30;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) k_mont_inv(const uint32_t* __restrict__ a,
                                                        uint32_t* __restrict__ out, int64_t C,
                                                        int field) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= C) return;
+  const taiga::InvConsts V = taiga::kInv[field];
   const FieldConsts F = kFields[field];
-  Fe two, e;
-#pragma unroll
-  for (int j = 0; j < taiga::kWords; j++) two.w[j] = j == 0 ? 2u : 0u;
-  taiga::sub8(e, F.p, two);  // the exponent p - 2, the same on every lane
-  int top = 255;
-  while (top > 0 && !((e.w[top >> 5] >> (top & 31)) & 1u)) top--;
   const Fe x = load_limbs(a + lane * taiga::kLimbs);
-  Fe r = x;  // the top bit's square-and-multiply from 1
-#pragma unroll 1
-  for (int i = top - 1; i >= 0; i--) {
-    r = taiga::fe_mul(r, r, F);
-    if ((e.w[i >> 5] >> (i & 31)) & 1u) r = taiga::fe_mul(r, x, F);
+  int32_t f[kLimbs30], g[kLimbs30], d[kLimbs30], e[kLimbs30];
+#pragma unroll
+  for (int i = 0; i < kLimbs30; i++) {  // g = x in 30-bit limbs: bits 30i .. 30i + 29
+    const int j = 30 * i / 32, s = 30 * i % 32;
+    uint64_t w = x.w[j];
+    if (j + 1 < taiga::kWords) w |= (uint64_t)x.w[j + 1] << 32;
+    g[i] = (int32_t)((w >> s) & kM30);
+    f[i] = V.p30[i];
+    d[i] = 0;
+    e[i] = i == 0;
   }
-  store_limbs(out + lane * taiga::kLimbs, r);
+  int32_t zeta = -1;  // delta = 1/2
+#pragma unroll 1
+  for (int b = 0; b < kDivBatches; b++) {
+    Trans t;
+    zeta = divsteps_30(zeta, (uint32_t)f[0], (uint32_t)g[0], t);
+    update_de(d, e, t, V);
+    update_fg(f, g, t);
+  }
+  // g = 0 and f = +-1 (gcd(p, x) = 1; f = p for x = 0, where d = 0):
+  // d = +-(aR)^-1 mod p
+  normalize(d, f[kLimbs30 - 1], V);
+  Fe y;
+#pragma unroll
+  for (int j = 0; j < taiga::kWords; j++) {  // bits 32j .. 32j + 31 of d: two limbs
+    const int k = 32 * j / 30, s = 32 * j % 30;
+    y.w[j] = (uint32_t)(((uint64_t)(uint32_t)d[k] >> s) |
+                        ((uint64_t)(uint32_t)d[k + 1] << (30 - s)));
+  }
+  store_limbs(out + lane * taiga::kLimbs, taiga::fe_mul_pasta(y, V.r3, F));
 }
 
 // ---------------------------------------------------------------------------

@@ -41,11 +41,27 @@
 // against 64 B a coefficient read once and the powers' 32 B, read from L2
 // by every row c.
 //
-// K13 linear_combo (k_linear_combo): out[b, i] = sum_c w[b, c] stack[b, c,
-// i], one thread an output element looping over the C columns, the
-// block's C weights in shared memory. Bound: bytes, each stack element
-// read once (and operations close behind: one product an element read).
-//
+// K13 linear_combo (k_linear_combo): out[b, g, i] = add[b, g, i] + sum_s
+// w[b, s] stack[b, col[s], i] over group g's terms s, for G groups of
+// terms in one launch: the multiopen's point groups gathered from the
+// whole coefficient stack by their column list, or (G = 1, col[s] = s, no
+// addend) a plain weighted sum of C columns. A block takes a tile of 32
+// positions of one proof's row, one position a lane (neighbouring lanes on
+// neighbouring elements), and runs the groups in turn, so a column that
+// several groups take is read again from L1 or L2; within a group its
+// warps share the terms (warp w takes terms w, w + W, ..), a lane sums its
+// terms' unreduced 512-bit products in runs of up to 8 (mul_acc_wide) and
+// reduces each run once (redc_pasta_sum: K12's lazy sum, whose bound holds
+// for 8 products of canonical elements, field.cuh), and warp 0 adds the
+// other warps' sums (through shared memory, double-buffered by group) and
+// the addend and stores. The host picks W (ff_kernels.linear_combo_warps):
+// the terms spread over up to 8 warps while the call's blocks number two
+// an SM or fewer (a proof's widest group: 256 blocks of 8 warps, where the
+// design before, a thread an output element and a chain of C generic
+// products, ran 128 blocks of two warps), else a warp a run (a batch's sum
+// of 6 groups: one warp a block). Bound: bytes, each distinct stack
+// element read once, the output and addend once (operations: a wide
+// product a term and a reduction a run of 8, under half the bytes' time).
 // K14 synthetic_div (k_div_totals, k_div_apply): q_i = pinv^(i+1) sum_{j>i}
 // a_j p^j of each row, from the powers tables p^j and pinv^j (n + 1
 // entries a row, or one row for every row: a row stride of 0), which the
@@ -84,8 +100,10 @@ constexpr int kTile = kThreads * kPer;  // K14: positions of a row a block takes
 constexpr int kEvalThreads = 32;        // K12: one warp a block
 constexpr int kEvalPer = 8;             // K12: products a lane sums before one reduction
 constexpr int kEvalTile = kEvalThreads * kEvalPer;  // K12: positions a block, a tile
-constexpr int kComboThreads = 64;       // K13: threads a block (n / 64 blocks a proof)
-constexpr int64_t kMaxComboC = 48 * 1024 / sizeof(Fe);  // K13: columns, 48 KB of weights
+constexpr int kComboWarps = 8;          // K13: warps a block at most, each a share of the terms
+constexpr int kComboTile = 32;          // K13: positions a block, one a lane
+constexpr int kComboRun = 8;            // K13: products a lane sums before one reduction
+constexpr int kMaxComboGroups = 32;     // K13: groups a launch (their offsets passed by value)
 constexpr int64_t kMaxGrid = 0x7FFFFFFF;
 
 // The sum of x over the warp, on every lane.
@@ -180,25 +198,57 @@ __global__ void __launch_bounds__(kThreads) k_eval_reduce(EvalArgs a, int64_t B,
 // K13
 // ---------------------------------------------------------------------------
 
-// Grid: B row_blocks blocks, b = blockIdx.x / row_blocks; ws, in dynamic
-// shared memory, holds the proof's C weights.
-__global__ void __launch_bounds__(kComboThreads) k_linear_combo(
-    const uint32_t* __restrict__ stack, int64_t sb, int64_t sc, int64_t si,
-    const uint32_t* __restrict__ w, int64_t wb, int64_t wc, uint32_t* __restrict__ out,
-    int64_t C, int64_t n, int64_t row_blocks, int field) {
-  extern __shared__ Fe ws[];
+struct ComboArgs {
+  const uint32_t* stack;  // element (b, c, i) at stack + b sb + c sc + i si words
+  const int64_t* col;     // term s's column of the stack; null: column s
+  const uint32_t* w;      // weight (b, s) at w + b wb + s ws
+  const uint32_t* add;    // addend (b, g, i) at add + b ab + g ag + i ai; null: none
+  uint32_t* out;          // (B, G, n, 16)
+  int64_t sb, sc, si, wb, ws, ab, ag, ai, n, tiles;
+  int G;
+  int off[kMaxComboGroups + 1];  // group g's terms: off[g] .. off[g + 1] - 1
+};
+
+// Grid: B tiles blocks of W warps, (b, tile) = blockIdx.x / tiles, % tiles.
+__global__ void __launch_bounds__(kComboWarps * 32, 2) k_linear_combo(ComboArgs a, int field) {
+  __shared__ Fe part[2][kComboWarps - 1][kComboTile];  // warps 1 .. W - 1's sums, by group parity
   const FieldConsts F = kFields[field];
-  const int64_t b = blockIdx.x / row_blocks;
-  for (int64_t c = threadIdx.x; c < C; c += kComboThreads) ws[c] = load_limbs(w + b * wb + c * wc);
-  __syncthreads();
-  const int64_t i = (blockIdx.x % row_blocks) * kComboThreads + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t* src = stack + b * sb + i * si;
-  Fe acc = fe_zero();
+  const int64_t b = blockIdx.x / a.tiles, tile = blockIdx.x % a.tiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  const int64_t i = tile * kComboTile + lane;
+  const bool live = i < a.n;
+  const uint32_t* src = a.stack + b * a.sb + (live ? i : 0) * a.si;
+  const uint32_t* wrow = a.w + b * a.wb;
 #pragma unroll 1
-  for (int64_t c = 0; c < C; c++)
-    acc = taiga::fe_add(acc, taiga::fe_mul(ws[c], load_limbs(src + c * sc), F), F);
-  store_limbs(out + (b * n + i) * kLimbs, acc);
+  for (int g = 0; g < a.G; g++) {
+    const int s1 = a.off[g + 1];
+    Fe sum = fe_zero();
+#pragma unroll 1
+    for (int r0 = a.off[g] + warp; r0 < s1; r0 += warps * kComboRun) {
+      uint32_t acc[2 * kWords];
+#pragma unroll
+      for (int k = 0; k < 2 * kWords; k++) acc[k] = 0;
+#pragma unroll
+      for (int k = 0; k < kComboRun; k++) {
+        const int s = r0 + k * warps;
+        if (s < s1 && live) {
+          const int64_t c = a.col ? a.col[s] : s;
+          taiga::mul_acc_wide(acc, load_limbs(wrow + s * a.ws), load_limbs(src + c * a.sc));
+        }
+      }
+      sum = taiga::fe_add(sum, taiga::redc_pasta_sum(acc, F), F);
+    }
+    // warp 0 reads group g's sums after the barrier while the others go on to
+    // group g + 1, which writes the other buffer; group g + 2 writes this one
+    // only after the next barrier, which warp 0 reaches when it is done
+    if (warp > 0) part[g & 1][warp - 1][lane] = sum;
+    __syncthreads();
+    if (warp == 0 && live) {
+      for (int w = 1; w < warps; w++) sum = taiga::fe_add(sum, part[g & 1][w - 1][lane], F);
+      if (a.add) sum = taiga::fe_add(sum, load_limbs(a.add + b * a.ab + g * a.ag + i * a.ai), F);
+      store_limbs(a.out + ((b * a.G + g) * a.n + i) * kLimbs, sum);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -318,19 +368,29 @@ extern "C" int taiga_eval_polys(const uint32_t* coeffs, int64_t cb, int64_t cc, 
   return (int)cudaGetLastError();
 }
 
-// out (B, n, 16) = sum_c w[b, c] stack[b, c, :]; stack element (b, c, i) at
-// stack + b sb + c sc + i si words, weight (b, c) at w + b wb + c wc.
+// out (B, G, n, 16): out[b, g] = add[b, g] + sum over s in off[g] ..
+// off[g + 1] - 1 of w[b, s] stack[b, col[s]]; stack element (b, c, i) at
+// stack + b sb + c sc + i si words, weight (b, s) at w + b wb + s ws, addend
+// (b, g, i) at add + b ab + g ag + i ai (null: none), col null for column s;
+// off holds G + 1 offsets, G <= kMaxComboGroups groups of a term or more;
+// warps a block, 1 to kComboWarps.
 extern "C" int taiga_linear_combo(const uint32_t* stack, int64_t sb, int64_t sc, int64_t si,
-                                  const uint32_t* w, int64_t wb, int64_t wc, uint32_t* out,
-                                  int64_t B, int64_t C, int64_t n, int field,
-                                  cudaStream_t stream) {
+                                  const int64_t* col, const int32_t* off, int G,
+                                  const uint32_t* w, int64_t wb, int64_t ws, const uint32_t* add,
+                                  int64_t ab, int64_t ag, int64_t ai, uint32_t* out, int64_t B,
+                                  int64_t n, int warps, int field, cudaStream_t stream) {
   if (B <= 0 || n <= 0) return 0;
-  if (C <= 0 || C > kMaxComboC || field < 0 || field > 1)
+  if (G < 1 || G > kMaxComboGroups || warps < 1 || warps > kComboWarps || field < 0 ||
+      field > 1)
     return (int)cudaErrorInvalidValue;
-  const int64_t row_blocks = blocks_for(n, kComboThreads);
-  if (B * row_blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
-  k_linear_combo<<<(unsigned)(B * row_blocks), kComboThreads, (size_t)C * sizeof(Fe), stream>>>(
-      stack, sb, sc, si, w, wb, wc, out, C, n, row_blocks, field);
+  ComboArgs a{stack, col, w, add, out, sb, sc, si, wb, ws, ab, ag, ai, n, 0, G, {}};
+  for (int g = 0; g <= G; g++) {
+    a.off[g] = off[g];
+    if (g > 0 && off[g] <= off[g - 1]) return (int)cudaErrorInvalidValue;
+  }
+  a.tiles = blocks_for(n, kComboTile);
+  if (B * a.tiles > kMaxGrid) return (int)cudaErrorInvalidValue;
+  k_linear_combo<<<(unsigned)(B * a.tiles), warps * 32, 0, stream>>>(a, field);
   return (int)cudaGetLastError();
 }
 

@@ -121,7 +121,8 @@ _ARGTYPES = {
         "taiga_poly_tiles": [_I64],
         "taiga_eval_polys": [_VP, _I64, _I64, _I64, _VP, _I64, _I64, _I64, _VP, _VP, _I64, _I64,
                              _I64, _I64, ctypes.c_int, _VP],
-        "taiga_linear_combo": [_VP, _I64, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _I64,
+        "taiga_linear_combo": [_VP, _I64, _I64, _I64, _VP, _VP, ctypes.c_int, _VP, _I64, _I64,
+                               _VP, _I64, _I64, _I64, _VP, _I64, _I64, ctypes.c_int,
                                ctypes.c_int, _VP],
         "taiga_synthetic_div": [_VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _I64, _VP, _VP, _I64,
                                 _I64, ctypes.c_int, _VP],
@@ -150,16 +151,18 @@ def _load(name: str) -> ctypes.CDLL:
     from . import limbs as L
 
     so = ctypes.CDLL(_so_path(name))
-    so.taiga_set_field.argtypes = [ctypes.c_int, _VP, ctypes.c_uint32]
+    so.taiga_set_field.argtypes = [ctypes.c_int, _VP, ctypes.c_uint32, _VP]
     so.taiga_set_field.restype = ctypes.c_int
     for fn, argtypes in _ARGTYPES[name].items():
         getattr(so, fn).argtypes = argtypes
         getattr(so, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
     for field, fid in FIELD_IDS.items():
         p = L.FIELDS[field].modulus
-        words = (ctypes.c_uint32 * 8)(*[(p >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
+        words, r3 = ((ctypes.c_uint32 * 8)(*[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
+                     for v in (p, pow(2, 3 * 256, p)))  # p, and R^3 mod p for K8
         n0 = (-pow(p, -1, 1 << 32)) % (1 << 32)
-        check(so.taiga_set_field(fid, ctypes.cast(words, _VP), n0), f"{name}: set_field")
+        check(so.taiga_set_field(fid, ctypes.cast(words, _VP), n0, ctypes.cast(r3, _VP)),
+              f"{name}: set_field")
     return so
 
 

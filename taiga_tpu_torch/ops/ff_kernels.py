@@ -18,14 +18,14 @@ warp's lanes read neighbouring words.
   K7 ec_add_select_lm   sel ? P1 + P2 : P1 (Jacobian)  csrc/ec_add_jac.cu
      ec_ladder_lm       K7 chained: double-and-add     csrc/ec_add_jac.cu
      ec_double_lm       Jacobian doubling (dbl-2009-l) csrc/ec_add_jac.cu
-  K8 mont_inv_lm        Fermat's a^(p-2) of each row   csrc/grand_product.cu
+  K8 mont_inv_lm        a^-1 of each row (divsteps)    csrc/grand_product.cu
   K9 mont_cumprod_lm    prefix or suffix products      csrc/grand_product.cu
      powers_lm          1, x, .., x^(n-1) of each x    csrc/grand_product.cu
   K10 perm_terms_lm     the grand products' numerators csrc/grand_product.cu
       lookup_terms_lm   and denominators               csrc/grand_product.cu
   K11 ntt_lm            the NTT family, two passes     csrc/ntt.cu
   K12 eval_polys_lm     C polynomials at Q points      csrc/poly.cu
-  K13 linear_combo_lm   sum_c w_c * stack_c            csrc/poly.cu
+  K13 linear_combo_lm   sum_c w_c * stack_c (grouped)  csrc/poly.cu
   K14 synthetic_div_lm  (A(X) - A(p)) / (X - p)        csrc/poly.cu
   K15 permute_pairs_lm  the lookups' permuted pairs    csrc/lookup_sort.cu
   K16 from_mont_lm      a R^-1 (out of Montgomery form) csrc/convert.cu
@@ -51,6 +51,7 @@ inferred from n0inv, which both Pasta primes share.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import math
 
 import numpy as np
@@ -638,9 +639,10 @@ def check_rows(name: str, t: torch.Tensor, *shape: int):
 
 
 def mont_inv_lm(a, field: str = "fp"):
-    """K8: Fermat's inverse a^(p-2) of each of C Montgomery rows (C, 16),
-    0 mapping to 0: one thread a row runs the whole chain in registers, one
-    launch."""
+    """K8: the inverse of each of C Montgomery rows (C, 16), 0 mapping to 0:
+    one thread a row runs Bernstein and Yang's constant-time divsteps (600
+    of them in 30-bit limbs) and one product by R^3, one launch. The inverse
+    is unique, so it equals the plain version's Fermat chain bit for bit."""
     check_rows("a", a, len(a), NLIMBS)
     if not use_kernel(a):
         return mont_inv_plain(a, field)
@@ -815,7 +817,10 @@ def lookup_terms_lm(a, s, ap, sp, beta, gamma):
     return outs
 
 
-LINEAR_COMBO_MAX_C = 1536  # the columns K13 takes: 48 KB of weights (csrc/poly.cu kMaxComboC)
+LINEAR_COMBO_MAX_GROUPS = 32  # the groups of a K13 launch (csrc/poly.cu kMaxComboGroups)
+COMBO_WARPS = 8  # K13: warps a block at most (csrc/poly.cu kComboWarps)
+COMBO_TILE = 32  # K13: positions a block (kComboTile)
+COMBO_RUN = 8  # K13: products a lane sums before one reduction (kComboRun)
 NTT_K_MAX = 18  # the largest domain K11 takes, 2^18: two passes of 2^9 (csrc/ntt.cu)
 NTT_ONE_PASS_K = 10  # K11 runs k <= 10 in one launch, a larger k in two (csrc/ntt.cu kMaxLog)
 NTT_MIN_THREADS = 132 * 1024  # K11 takes radix 4 only where that keeps this many threads
@@ -937,34 +942,87 @@ def eval_polys_lm(coeffs, points, field: str = "fp"):
     return out
 
 
-def linear_combo_lm(stack, weights, field: str = "fp"):
-    """K13: sum_c weights[c] * stack[c], stack (..., C, n, 16) and weights
-    (..., C, 16) Montgomery -> (..., n, 16), the leading axes broadcast:
-    one launch, one thread an output element looping over the C columns
-    (at most LINEAR_COMBO_MAX_C on the card). Any strides."""
+def linear_combo_warps(blocks: int, widest: int, sms: int = 132) -> int:
+    """K13's warps a block for a call of `blocks` blocks whose widest group
+    has `widest` terms: the terms spread over up to COMBO_WARPS warps while
+    the blocks number at most two an SM (the call is bound by a lane's
+    chain: a proof's widest group, 256 blocks of 8 warps), else a warp a
+    run of COMBO_RUN terms (fewer, fuller warps: a batch's sum of 6 groups,
+    one warp a block, measured twice as fast as six)."""
+    if blocks <= 2 * sms:
+        return min(COMBO_WARPS, widest)
+    return min(COMBO_WARPS, -(-widest // COMBO_RUN))
+
+
+def linear_combo_lm(stack, weights, field: str = "fp", cols=None, sizes=None, addend=None):
+    """K13: weighted sums of a stack's columns, stack (..., C, n, 16) and
+    weights Montgomery, the leading axes broadcast. Without `sizes`: sum_c
+    weights[c] * stack[c], weights (..., C, 16) -> (..., n, 16). With
+    `sizes` (G group sizes of S terms in all) and `cols` (S column indices
+    of the stack, or None for columns 0 .. S - 1): out[g] = addend[g] +
+    sum over group g's terms s of weights[s] * stack[cols[s]], weights (...,
+    S, 16), addend (..., G, n, 16) or None -> (..., G, n, 16): the
+    multiopen's point groups gathered in the kernel, and its f = h + sum_j
+    w^(j+1) agg_j as one group with h for its addend. One launch: a block a
+    tile of COMBO_TILE positions of one proof running every group, its
+    warps sharing a group's terms (linear_combo_warps), lazily reduced
+    sums. On the card at most LINEAR_COMBO_MAX_GROUPS groups. Any
+    strides."""
     from . import poly as PL
 
     _check_poly_rows("stack", stack, 3)
     _check_poly_rows("weights", weights, 2)
     C, n = stack.shape[-3:-1]
-    if weights.shape[-2] != C or C < 1:
-        raise ValueError(f"weights: shape {tuple(weights.shape)}, expected (..., {C}, 16), "
+    if sizes is None:
+        if cols is not None or addend is not None:
+            raise ValueError("linear_combo: cols and addend need sizes")
+        S, G = C, 1
+    else:
+        sizes = tuple(int(z) for z in sizes)
+        S, G = sum(sizes), len(sizes)
+        if not sizes or min(sizes) < 1:
+            raise ValueError(f"linear_combo: group sizes {sizes}")
+        if cols is not None:
+            cols = [int(c) for c in cols]
+            if len(cols) != S or min(cols) < 0 or max(cols) >= C:
+                raise ValueError(f"linear_combo: {len(cols)} columns, expected {S} in 0 .. {C - 1}")
+        elif S > C:
+            raise ValueError(f"linear_combo: {S} terms of a stack of {C} columns")
+    if weights.shape[-2] != S or C < 1:
+        raise ValueError(f"weights: shape {tuple(weights.shape)}, expected (..., {S}, 16), "
                          f"C >= 1")
-    if not use_kernel(stack, weights):
-        return PL.linear_combo_plain(stack, weights, field)
-    if C > LINEAR_COMBO_MAX_C:
-        raise ValueError(f"linear_combo: {C} columns, the kernel takes {LINEAR_COMBO_MAX_C}")
-    lead = tuple(torch.broadcast_shapes(stack.shape[:-3], weights.shape[:-2]))
-    out = torch.empty(lead + (n, NLIMBS), dtype=stack.dtype, device=stack.device)
+    if addend is not None:
+        _check_poly_rows("addend", addend, 3)
+        if tuple(addend.shape[-3:-1]) != (G, n):
+            raise ValueError(f"addend: shape {tuple(addend.shape)}, expected (..., {G}, {n}, 16)")
+    ins = (stack, weights) + (() if addend is None else (addend,))
+    if not use_kernel(*ins):
+        if sizes is None:
+            return PL.linear_combo_plain(stack, weights, field)
+        return PL.linear_combo_groups_plain(stack, cols, sizes, weights, addend, field)
+    if G > LINEAR_COMBO_MAX_GROUPS:
+        raise ValueError(f"linear_combo: {G} groups, the kernel takes {LINEAR_COMBO_MAX_GROUPS}")
+    lead = tuple(torch.broadcast_shapes(stack.shape[:-3], weights.shape[:-2],
+                                        *(() if addend is None else (addend.shape[:-3],))))
+    out = torch.empty(lead + (G, n, NLIMBS), dtype=stack.dtype, device=stack.device)
     if out.numel() == 0:
-        return out
+        return out if sizes else out[..., 0, :, :]
     sv = _lead_rows(stack, lead, (C, n, NLIMBS))
-    wv = _lead_rows(weights, lead, (C, NLIMBS))
+    wv = _lead_rows(weights, lead, (S, NLIMBS))
+    av = None if addend is None else _lead_rows(addend, lead, (G, n, NLIMBS))
+    col = None if cols is None else torch.as_tensor(cols, dtype=torch.int64, device=stack.device)
+    off = (ctypes.c_int32 * (G + 1))(*np.cumsum((0,) + (sizes or (C,))).tolist())
+    B = sv.shape[0]
+    warps = linear_combo_warps(B * -(-n // COMBO_TILE), max(sizes or (C,)),
+                               _sm_count(stack.device))
     CK.check(CK.lib("poly").taiga_linear_combo(
-        _ptr(sv), *sv.stride()[:3], _ptr(wv), *wv.stride()[:2], _ptr(out), sv.shape[0], C, n,
-        CK.FIELD_IDS[field], CK.stream_ptr(stack.device)), "linear_combo")
+        _ptr(sv), *sv.stride()[:3], None if col is None else _ptr(col),
+        ctypes.cast(off, ctypes.c_void_p), G, _ptr(wv), *wv.stride()[:2],
+        None if av is None else _ptr(av), *(av.stride()[:3] if av is not None else (0, 0, 0)),
+        _ptr(out), B, n, warps, CK.FIELD_IDS[field], CK.stream_ptr(stack.device)),
+        "linear_combo")
     linear_combo_lm.launches += 1
-    return out
+    return out if sizes else out[..., 0, :, :]
 
 
 def synthetic_div_lm(coeffs, point, point_inv, field: str = "fp"):

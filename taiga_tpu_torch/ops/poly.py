@@ -95,6 +95,23 @@ def linear_combo_plain(coeffs_stack, weights, field: str = "fp"):
     return tree_sum(prod, axis=-3, field=field)
 
 
+def linear_combo_groups_plain(coeffs_stack, cols, sizes, weights, addend=None,
+                              field: str = "fp"):
+    """Plain version of K13's grouped form, the reference's route
+    (taiga_tpu/plonk/hybrid_open.py agg_fn and f_fn): each group's columns
+    gathered (index_select), its weighted sum (linear_combo_plain), the
+    groups stacked on a new axis -3, then the addend added (L.add)."""
+    sel = coeffs_stack if cols is None else coeffs_stack.index_select(
+        -3, torch.as_tensor(cols, dtype=torch.int64, device=coeffs_stack.device))
+    outs, off = [], 0
+    for sz in sizes:
+        outs.append(linear_combo_plain(sel[..., off : off + sz, :, :],
+                                       weights[..., off : off + sz, :], field))
+        off += sz
+    out = torch.stack(outs, dim=-3)
+    return out if addend is None else L.add(out, addend, _spec(field))
+
+
 def eval_polys_at_points(coeffs, points, field: str = "fp"):
     """Evaluate C polynomials at Q points: coeffs (..., C, n, 16), points
     (..., Q, 16) Montgomery -> (..., Q, C, 16) Montgomery values; the
@@ -114,3 +131,15 @@ def mont_linear_combo(coeffs_stack, weights, field: str = "fp"):
     """sum_c weights[c] * coeffs_stack[c]: (..., C, n, 16) x (..., C, 16)
     -> (..., n, 16) (K13)."""
     return FK.linear_combo_lm(coeffs_stack, weights, field)
+
+
+def mont_linear_combo_groups(coeffs_stack, cols, sizes, weights, addend=None,
+                             field: str = "fp"):
+    """The weighted sums of G groups of a stack's columns in one launch
+    (K13): group g's terms s (sizes[g] of them, in order) each weights[s] *
+    coeffs_stack[cols[s]] (cols None: column s), plus addend[g]:
+    (..., C, n, 16), S column indices, G sizes summing to S, (..., S, 16)
+    and (..., G, n, 16) or None -> (..., G, n, 16). The multiopen's
+    point-group aggregates (agg_fn) and its f = h + sum_j w^(j+1) agg_j
+    (f_fn, one group with h as its addend)."""
+    return FK.linear_combo_lm(coeffs_stack, weights, field, cols, sizes, addend)

@@ -25,7 +25,6 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from ..crypto.fields import Fp
 from ..ops import ff_kernels as FK, limbs as L, poly
@@ -63,8 +62,7 @@ def _aggregate(pipe, all_coeffs_b, entries_b, trs, h_blinds):
     per_proof = [_group_entries(entries) for entries in entries_b]
     groups0, order0 = per_proof[0]
     sizes = [len(groups0[p]) for p in order0]
-    idxs = torch.as_tensor(np.asarray([e["coeff_idx"] for p in order0 for e in groups0[p]],
-                                      np.int64), device=dev)
+    cols = [e["coeff_idx"] for p in order0 for e in groups0[p]]
     weights_b, blinds_b, orders = [], [], []
     for (groups, order), v_ch in zip(per_proof, v_chs):
         weights, blinds = [], []
@@ -79,13 +77,8 @@ def _aggregate(pipe, all_coeffs_b, entries_b, trs, h_blinds):
         weights_b.append(weights)
         blinds_b.append(blinds)
         orders.append(order)
-    w_dev = mont(weights_b)  # (B, S, 16)
-    agg, off = [], 0
-    for sz in sizes:  # per point: the v-weighted sum of its polynomials
-        sel = all_coeffs_b.index_select(1, idxs[off : off + sz])
-        agg.append(poly.mont_linear_combo(sel, w_dev[:, off : off + sz]))
-        off += sz
-    agg = torch.stack(agg, dim=1)  # (B, G, n, 16)
+    # per point: the v-weighted sum of its polynomials, gathered in one launch
+    agg = poly.mont_linear_combo_groups(all_coeffs_b, cols, sizes, mont(weights_b))  # (B, G, n, 16)
 
     u_chs = [tr.challenge(b"mo-u").v for tr in trs]
     G = len(sizes)
@@ -103,8 +96,9 @@ def _aggregate(pipe, all_coeffs_b, entries_b, trs, h_blinds):
         for av in a_vals[bi * G : (bi + 1) * G]:
             tr.write_scalar(Fp(av))
         w_chs.append(tr.challenge(b"mo-w").v)
-    f = L.add(h, poly.mont_linear_combo(
-        agg, mont([[pow(w, j + 1, P) for j in range(G)] for w in w_chs])), L.FP)
+    f = poly.mont_linear_combo_groups(  # h + sum_j w^(j+1) agg_j, one launch
+        agg, None, (G,), mont([[pow(w, j + 1, P) for j in range(G)] for w in w_chs]),
+        addend=h[:, None])[:, 0]
     f_blinds = []
     for h_blind, blinds, w_ch in zip(h_blinds, blinds_b, w_chs):
         f_blind = h_blind

@@ -1,7 +1,8 @@
 """The grand products' kernels (taiga_tpu_torch.ops.ff_kernels K8 mont_inv_lm,
 K9 mont_cumprod_lm, K10 perm_terms_lm / lookup_terms_lm, csrc/grand_product.cu)
 through their plain versions on the CPU, against the JAX package: K8 against
-taiga_tpu.ops.limbs.mont_inv on both fields, K9 forward and reverse against
+taiga_tpu.ops.limbs.mont_inv on both fields (and a Python-integer model of
+the kernel's divsteps against pow() and mont_inv), K9 forward and reverse against
 taiga_tpu.ops.poly.mont_cumprod (reverse: its result on the flipped rows),
 K9's powers entry (powers_lm) against taiga_tpu.ops.poly.powers on both
 fields, the host sizes of K9's launches and powers tables against the
@@ -74,6 +75,116 @@ def test_mont_inv_plain_matches_reference(field):
     np.testing.assert_array_equal(got, _ref(lambda x: _jinv(x, jspec), a))
     assert not got[0].any()  # 0 maps to 0
     np.testing.assert_array_equal(got[1], spec.one_mont)  # 1 is its own inverse
+
+
+# A model of K8's kernel (csrc/grand_product.cu k_mont_inv) in Python
+# integers: the same 20 batches of 30 divsteps on the low words (uint32
+# masks, int32 zeta), the same transition matrices applied to (f, g) and,
+# with the kernel's choice of md and me, to (d, e) mod p; the values'
+# nine 30-bit limbs as the kernel cuts them; the final product by R^3.
+DIV_BATCHES, DIV_STEPS, LIMB30 = 20, 30, 30
+M32, M30 = (1 << 32) - 1, (1 << 30) - 1
+
+
+def _i32(w):
+    return w - (1 << 32) if w >> 31 else w
+
+
+def _divsteps_30(zeta, f, g):
+    """The kernel's divsteps_30 on 32-bit words: the new zeta and the
+    transition matrix (u, v, q, r) as signed values."""
+    u, v, q, r = 1, 0, 0, 1
+    for _ in range(DIV_STEPS):
+        c1 = M32 if zeta < 0 else 0
+        c2 = M32 if g & 1 else 0
+        x, y, z = (((t ^ c1) - c1) & M32 for t in (f, u, v))
+        g, q, r = (g + (x & c2)) & M32, (q + (y & c2)) & M32, (r + (z & c2)) & M32
+        c3 = c1 & c2
+        zeta = (zeta ^ _i32(c3)) - 1
+        f, u, v = (f + (g & c3)) & M32, (u + (q & c3)) & M32, (v + (r & c3)) & M32
+        g, u, v = g >> 1, (u << 1) & M32, (v << 1) & M32
+    return zeta, tuple(map(_i32, (u, v, q, r)))
+
+
+def _limbs30(x):
+    """The kernel's cut of a 256-bit value into nine 30-bit limbs, and back
+    (words 32j .. 32j + 31 from two limbs)."""
+    limbs = [(x >> (LIMB30 * i)) & M30 for i in range(9)]
+    words = [((limbs[32 * j // 30] >> (32 * j % 30)) | (limbs[32 * j // 30 + 1]
+                                                       << (30 - 32 * j % 30))) & M32
+             for j in range(8)]
+    return limbs, sum(w << (32 * j) for j, w in enumerate(words))
+
+
+def _inv_model(xr, p):
+    """(x R)^-1 R^3 R^-1 mod p for a Montgomery input xr, and the divsteps
+    after which g first reached 0 (None if it never did)."""
+    limbs, back = _limbs30(xr)
+    assert back == xr and sum(v << (30 * i) for i, v in enumerate(limbs)) == xr
+    inv = 1  # taiga_set_field's p^-1 mod 2^32, Newton from one bit
+    for _ in range(5):
+        inv = inv * (2 - p * inv) & M32
+    pinv30 = inv & M30
+    assert p * pinv30 & M30 == 1
+    f, g, d, e, zeta, done = p, xr, 0, 1, -1, (0 if xr == 0 else None)
+    for b in range(DIV_BATCHES):
+        zeta, (u, v, q, r) = _divsteps_30(zeta, f & M30, g & M30)
+        assert -(1 << 30) <= min(u, v, q, r) and max(u, v, q, r) <= 1 << 30
+        md = (u if d < 0 else 0) + (v if e < 0 else 0)
+        me = (q if d < 0 else 0) + (r if e < 0 else 0)
+        cd, ce = u * d + v * e, q * d + r * e
+        md -= (pinv30 * (cd & M32) + md) & M30
+        me -= (pinv30 * (ce & M32) + me) & M30
+        assert (cd + p * md) & M30 == 0 and (ce + p * me) & M30 == 0
+        d, e = (cd + p * md) >> 30, (ce + p * me) >> 30
+        nf, ng = u * f + v * g, q * f + r * g
+        assert nf & M30 == 0 and ng & M30 == 0
+        f, g = nf >> 30, ng >> 30
+        assert -2 * p < d < p and -2 * p < e < p
+        if done is None and g == 0:
+            done = DIV_STEPS * (b + 1)
+    assert g == 0 and f in ((1, -1) if xr else (p,))
+    if d < 0:  # normalize: add p if negative, negate when f < 0, add p again
+        d += p
+    if f < 0:
+        d = -d
+    if d < 0:
+        d += p
+    assert 0 <= d < p and (d * xr - (1 if xr else 0)) % p == 0
+    R = 1 << 256
+    return d * pow(R, 3, p) * pow(R, -1, p) % p, done
+
+
+def _inv_inputs(p, seed):
+    """0, 1, 2, p - 1, (p - 1) / 2, every power of two below p and seeded
+    values."""
+    rng = random.Random(seed)
+    return ([0, 1, 2, p - 1, (p - 1) // 2] + [1 << k for k in range(p.bit_length() - 1)]
+            + [rng.randrange(p) for _ in range(40)])
+
+
+@pytest.mark.parametrize("field", ["fp", "fq"])
+def test_mont_inv_divsteps_model(field):
+    """K8's divsteps, modelled in Python integers, against pow(x, p - 2, p)
+    and the JAX package's mont_inv on the edges, the powers of two and
+    seeded values: g is 0 after the kernel's 600 divsteps on each, within
+    the 590 its bound allows, and 0 maps to 0."""
+    spec = L.FIELDS[field]
+    p, R = spec.modulus, 1 << 256
+    assert DIV_BATCHES * DIV_STEPS >= 590 and 1 << 254 < p < 1 << 255
+    xs = _inv_inputs(p, SEED + (field == "fq"))
+    most = 0
+    got = []
+    for x in xs:
+        y, done = _inv_model(x * R % p, p)
+        assert y == pow(x, p - 2, p) * R % p, x
+        most = max(most, done)
+        got.append(L.int_to_limbs(y))
+    assert most <= 590
+    jspec = JL.FP if field == "fp" else JL.FQ
+    want = _ref(lambda a: _jinv(a, jspec),
+                np.stack([L.int_to_limbs(x * R % p) for x in xs]).astype(np.int32))
+    np.testing.assert_array_equal(np.stack(got).astype(np.int32), want)
 
 
 @pytest.mark.parametrize("field,n", [("fp", 1), ("fp", 2), ("fp", 7), ("fp", 64), ("fq", 64)])

@@ -7,9 +7,11 @@ CPU): n in {2, 37, 64}, C and Q of 1 and a few, a leading batch axis
 against one stack at a time, shared and per-polynomial points (with a
 point_inv that is not the point's inverse), and the values 0, R mod p and
 p - 1 among the coefficients, points and weights (and a stack of p - 1
-only at nine points, where K12's unreduced sums are largest); exact
-equality. Also the wrappers' refusals and the source list. The kernels themselves are held
-against the plain versions on the card (chip_smoke.py, phase_poly)."""
+only at nine points, where K12's unreduced sums are largest); K13's
+grouped call (mont_linear_combo_groups) against the reference multiopen's
+agg_fn and f_fn; exact equality. Also the wrappers' refusals and the
+source list. The kernels themselves are held against the plain versions
+on the card (chip_smoke.py, phase_poly)."""
 
 import os
 
@@ -18,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from taiga_tpu.ops import poly as JP
+from taiga_tpu.ops import limbs as JL, poly as JP
+from taiga_tpu.plonk import hybrid_open as JH
 from taiga_tpu_torch.ops import cuda_kernels as CK, ff_kernels as FK, limbs as TL, poly as TP
 
 NS = (2, 37, 64)
@@ -100,6 +103,48 @@ def test_linear_combo_lm_matches_reference(n, C):
     assert torch.equal(TP.mont_linear_combo(_t(stack[0]), _t(weights[0])), got[0])
 
 
+GROUPS = (1, 8, 9, 17)  # K13's grouped call: groups across its runs of 8 terms
+
+
+@pytest.mark.parametrize("addend", [False, True], ids=["no_addend", "addend"])
+@pytest.mark.parametrize("top", [False, True], ids=["seeded", "p_minus_1"])
+def test_linear_combo_groups_match_reference(addend, top):
+    """K13's grouped call (its plain version on the CPU) against the
+    reference multiopen's agg_fn (taiga_tpu/plonk/hybrid_open.py: the
+    groups' columns gathered, each group's mont_linear_combo, jnp.stack),
+    with L.add of an addend after it: groups of 1, 8, 9 and 17 terms over
+    20 columns, some columns in several groups; every coefficient p - 1
+    (the largest lazy sums on the card) or seeded values."""
+    C, n = 20, 37
+    rng = np.random.default_rng(5 + top + 2 * addend)
+    cols = rng.integers(0, C, size=sum(GROUPS)).tolist()
+    stack = (np.broadcast_to(TL.int_to_limbs(TL.FP.modulus - 1), (B, C, n, 16)).copy() if top
+             else _vals((B, C, n), 80))
+    weights, add = _vals((B, sum(GROUPS)), 81), _vals((B, len(GROUPS), n), 82)
+    agg_fn, _, _ = JH._build_programs(GROUPS)
+    got = TP.mont_linear_combo_groups(_t(stack), cols, GROUPS, _t(weights),
+                                      _t(add) if addend else None)
+    assert got.shape == (B, len(GROUPS), n, 16)
+    for b in range(B):
+        want = agg_fn(_j(stack[b]), jnp.asarray(np.asarray(cols, np.int32)), _j(weights[b]))
+        if addend:
+            want = JL.add(want, _j(add[b]), JL.FP)
+        _eq(got[b], want, f"stack {b}")
+
+
+def test_linear_combo_f_matches_reference():
+    """The multiopen's f = h + sum_j w^(j+1) agg_j as K13's one group with h
+    for its addend, against the reference's f_fn, with p - 1 among the
+    aggregates, weights and h."""
+    G, n = 6, 37
+    agg, w, h = _vals((B, G, n), 90), _vals((B, G), 91), _vals((B, n), 92)
+    _, _, f_fn = JH._build_programs((1,) * G)
+    got = TP.mont_linear_combo_groups(_t(agg), None, (G,), _t(w), addend=_t(h)[:, None])
+    assert got.shape == (B, 1, n, 16)
+    for b in range(B):
+        _eq(got[b, 0], f_fn(_j(h[b]), _j(agg[b]), _j(w[b])), f"proof {b}")
+
+
 @pytest.mark.parametrize("n", NS)
 @pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_poly"])
 def test_synthetic_div_lm_matches_reference(n, shared):
@@ -122,6 +167,19 @@ def test_synthetic_div_lm_matches_reference(n, shared):
                 _eq(got[b, g], JP.synthetic_div(_j(coeffs[b, g]), _j(point[b, g]),
                                                 _j(point_inv[b, g])), f"row ({b}, {g})")
     assert torch.equal(TP.synthetic_div(_t(coeffs), _t(point), _t(point_inv)), got)
+
+
+def test_linear_combo_warps():
+    """K13's warps a block: a group's terms over up to 8 warps while a call's
+    blocks number at most two an SM (a proof's rows: 256 blocks of 32
+    positions), else a warp a run of 8 terms (a batch's 2,048 blocks)."""
+    assert FK.linear_combo_warps(256, 90) == 8 and FK.linear_combo_warps(256, 6) == 6
+    assert FK.linear_combo_warps(2048, 90) == 8 and FK.linear_combo_warps(2048, 6) == 1
+    assert FK.linear_combo_warps(2048, 17) == 3 and FK.linear_combo_warps(1, 1) == 1
+    for blocks in (1, 264, 265, 5000):
+        for widest in range(1, 200):
+            w = FK.linear_combo_warps(blocks, widest)
+            assert 1 <= w <= min(FK.COMBO_WARPS, widest)
 
 
 def _refused(fn, *args):
@@ -151,6 +209,17 @@ def test_wrappers_refuse_bad_dtypes_and_shapes():
     _refused(FK.synthetic_div_lm, coeffs[0, 0], pt, pt)
     _refused(FK.synthetic_div_lm, coeffs, pt[:15], pt)
     _refused(FK.synthetic_div_lm, coeffs, pt, pt[:8])
+    # K13's groups: a column past the stack, sizes and columns or weights
+    # disagreeing, an empty group, an addend of the wrong groups, cols
+    # without sizes
+    stack, w3 = _t(_vals((4, 8), 6)), _t(_vals((3,), 7))
+    _refused(FK.linear_combo_lm, stack, w3, "fp", [0, 1, 4], (1, 2))
+    _refused(FK.linear_combo_lm, stack, w3, "fp", [0, 1], (1, 2))
+    _refused(FK.linear_combo_lm, stack, w3, "fp", [0, 1, 2], (1, 1))
+    _refused(FK.linear_combo_lm, stack, w3, "fp", [0, 1, 2], (3, 0))
+    _refused(FK.linear_combo_lm, stack, w3, "fp", [0, 1, 2], (1, 2), _t(_vals((3, 8), 8)))
+    _refused(FK.linear_combo_lm, stack, w3, "fp", [0, 1, 2])
+    _refused(FK.linear_combo_lm, stack[:2], w3, "fp", None, (3,))
 
 
 def test_lead_rows_reads_a_shared_row_in_place():

@@ -10,7 +10,9 @@ of 8. A later kernel slice adds a row.
   grand_products  K8 mont_inv_lm, K9 mont_cumprod_lm (both directions) and
                   K10 perm_terms_lm / lookup_terms_lm at a proof's and a
                   batch's shapes (P permutation columns in chunks of
-                  CHUNK, LOOKUPS lookups a proof, rows of 2^13); then
+                  CHUNK, LOOKUPS lookups a proof, rows of 2^13); K9 on
+                  the cold table build's batch_inv row (1, 262,144) in
+                  Fq; then
                   K9's powers tables (powers_lm) at the main path's calls:
                   a proof's query evaluations (6 points) and x3
                   evaluation (1) of 2^13 - 1, packed as K12 takes them,
@@ -35,7 +37,12 @@ of 8. A later kernel slice adds a row.
                   batch's shapes (B = 1, 8): the query evaluations
                   (eval_polys_at_points, (B, C, 2^13) at (B, Q) points),
                   the multiopen's weighted sum of its widest point group
-                  and of its G groups (mont_linear_combo), its division
+                  and of its G groups (mont_linear_combo), its aggregate
+                  of every group gathered from the C columns and its f =
+                  h + the groups' weighted sum (mont_linear_combo_groups;
+                  a checkout without it runs the multiopen's route before
+                  it: index_select, mont_linear_combo a group and
+                  torch.stack; mont_linear_combo and limbs.add), its division
                   (synthetic_div, (B, G, 2^13), a point a polynomial) and
                   its x3 evaluation ((B, G, 2^13) at one point); and a
                   trivial resource logic's query evaluations ((1, 81,
@@ -98,6 +105,9 @@ POWERS = (("query evals", 6, N - 1, True), ("x3", 1, N - 1, True),
           ("x3", BATCH, N - 1, True), ("K14 tables", 6 * BATCH, N + 1, False))
 
 
+BATCH_INV_N = 32 * N  # the cold table build's batch_inv row
+
+
 def grand_product_calls(mods, fe):
     """(name, fn, symbols) at a proof's and a batch's shapes."""
     FK, PL = mods["FK"], mods["PL"]
@@ -120,6 +130,9 @@ def grand_product_calls(mods, fe):
             (f"lookup_terms B={B}", lambda a=(*lk, beta, gamma): FK.lookup_terms_lm(*a),
              ("k_lookup_terms",)),
         ]
+    zs = fe(1, BATCH_INV_N)
+    calls.append((f"mont_cumprod batch_inv (1, {BATCH_INV_N}) fq",
+                  lambda a=zs: FK.mont_cumprod_lm(a, "fq"), K9))
     for what, Q, n, packed in POWERS:
         if hasattr(FK, "powers_lm"):
             fn = (lambda x=fe(Q), n=n, packed=packed: FK.powers_lm(x, n, "fp", packed))
@@ -174,13 +187,37 @@ RL_C = 81  # a trivial resource logic's committed columns at k = 12 (its 6 rotat
 
 
 def poly_calls(mods, fe):
-    PL = mods["PL"]
+    import torch
+
+    PL, L = mods["PL"], mods["L"]
+    grouped = hasattr(PL, "mont_linear_combo_groups")
+    # each group's distinct columns, the first all C_ALL (rotation 0 queries every table)
+    gen = torch.Generator().manual_seed(5)
+    cols = [c for z in GROUPS for c in torch.randperm(C_ALL, generator=gen)[:z].tolist()]
+
+    def aggregate(stack, w):  # the multiopen's point groups, as the checkout forms them
+        if grouped:
+            return PL.mont_linear_combo_groups(stack, cols, GROUPS, w)
+        idx, out, off = torch.as_tensor(cols, device=stack.device), [], 0
+        for z in GROUPS:
+            out.append(PL.mont_linear_combo(stack.index_select(1, idx[off : off + z]),
+                                            w[:, off : off + z]))
+            off += z
+        return torch.stack(out, dim=1)
+
+    def f_of(agg, w, h):  # the multiopen's f = h + sum_j w_j agg_j
+        if grouped:
+            return PL.mont_linear_combo_groups(agg, None, (agg.shape[1],), w,
+                                               addend=h[:, None])[:, 0]
+        return L.add(h, PL.mont_linear_combo(agg, w), L.FP)
+
     calls = []
     G = len(GROUPS)
     for B in (1, BATCH):
         coeffs, points = fe(B, C_ALL, N), fe(B, Q_ROTS)
         agg, w, pt, inv, x3 = fe(B, G, N), fe(B, G), fe(B, G), fe(B, G), fe(B, 1)
         sel, wsel = fe(B, GROUPS[0], N), fe(B, GROUPS[0])
+        wall, h = fe(B, sum(GROUPS)), fe(B, N)
         calls += [
             (f"eval_polys query evals B={B}",
              lambda c=coeffs, x=points: PL.eval_polys_at_points(c, x),
@@ -188,6 +225,10 @@ def poly_calls(mods, fe):
             (f"linear_combo widest group B={B}",
              lambda s=sel, v=wsel: PL.mont_linear_combo(s, v), ("k_linear_combo",)),
             (f"linear_combo groups B={B}", lambda a=agg, v=w: PL.mont_linear_combo(a, v),
+             ("k_linear_combo",)),
+            (f"linear_combo aggregate B={B}", lambda c=coeffs, v=wall: aggregate(c, v),
+             ("k_linear_combo",)),
+            (f"linear_combo f B={B}", lambda a=agg, v=w, h=h: f_of(a, v, h),
              ("k_linear_combo",)),
             (f"synthetic_div B={B}", lambda a=agg, p=pt, i=inv: PL.synthetic_div(a, p, i),
              ("k_div_totals", "k_div_apply")),
